@@ -1,0 +1,404 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`fidelityfusion_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout, one H100
+
+Phases, each of which must pass (the script exits non-zero otherwise and
+prints no result line):
+
+1. build the hand-written kernels from `fidelityfusion_tpu_torch/csrc`
+   (one `nvcc` per source, all started together);
+2. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes, and time kernel, plain version, the one library
+   call that computes the same function, and the bound from shapes;
+3. the main path: `train_AR` of a 3-fidelity AR cascade over SE CIGPs
+   with 4 restarts on nested (1024, 512, 256)-row subsets of the toy sin,
+   then `forward` and `export_posterior` on 1000 test points; every
+   kernel must have launched in this phase;
+4. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
+   an ARD fit (`mvn_nll_hybrid`).
+
+The second-to-last line is `{"kernels": [...]}`, the last
+`{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 without tensor cores (data sheet)
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (data sheet)
+NOISE = 1e-2              # SE Grams of the kernel checks: noise 1e-2
+SIZES = (1024, 512, 256)  # main path: rows of the three fidelities
+FAILURES = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(("PASS " if ok else "FAIL ") + what, flush=True)
+    if not ok:
+        FAILURES.append(what)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def timed(fn, torch, budget_s: float = 0.3, max_iters: int = 50) -> float:
+    """Mean milliseconds per call from CUDA events, after a warm-up call,
+    over as many calls as fit in ``budget_s`` (at least 1)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t
+    iters = max(1, min(max_iters, int(budget_s / max(once, 1e-6))))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and
+    operations / fp32 rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def se_problem(torch, R, n, d, gen, device):
+    """Toy inputs (standardized) and per-restart SE parameters on the card."""
+    x = torch.randn((n, d), generator=gen).to(device)
+    inv_ls = torch.exp(-torch.linspace(-1.5, 0.5, R))[:, None].expand(R, d).contiguous().to(device)
+    sv = torch.linspace(0.5, 2.0, R).to(device)
+    return x, inv_ls, sv, torch.full((R,), NOISE, device=device)
+
+
+def kernel_checks(torch, device, report):
+    from fidelityfusion_tpu_torch.ops import gram as G
+    from fidelityfusion_tpu_torch.ops.chol import (
+        chol_inv, chol_inv_plain, tri_inv, tri_inv_plain)
+    from fidelityfusion_tpu_torch.ops.linalg import LOG2PI
+
+    gen = torch.Generator().manual_seed(0)
+
+    # ---- K1: the training Gram (R=4, n=1024, d=1) and the cross-Gram 1024x1000
+    R, n, d = 4, 1024, 1
+    x, inv_ls, sv, da = se_problem(torch, R, n, d, gen, device)
+    got = G.gram(x, x, inv_ls, sv, diag_add=da)
+    want = G.gram_plain(x, x, inv_ls, sv, da)
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 + 1e-4 * want.abs()).all()),
+          f"K1 gram R={R} n={n}: max abs err {err.max().item():.3e} (rtol 1e-4, atol 1e-5)")
+    xt = torch.randn((1000, d), generator=gen).to(device)
+    got_c, want_c = G.gram(x, xt, inv_ls, sv), G.gram_plain(x, xt, inv_ls, sv)
+    err_c = (got_c - want_c).abs()
+    check(bool((err_c <= 1e-5 + 1e-4 * want_c.abs()).all()),
+          f"K1 cross-gram {n}x1000: max abs err {err_c.max().item():.3e}")
+    check(bool((got.diagonal(dim1=1, dim2=2) == (sv + da)[:, None]).all()),
+          "K1 diag == sv + diag_add exactly")
+
+    def library_gram():
+        xs = x[None] * inv_ls[:, None, :]
+        K = sv[:, None, None] * torch.exp(-0.5 * torch.cdist(xs, xs) ** 2)
+        return K + da[:, None, None] * torch.eye(n, device=device)
+
+    ms = timed(lambda: G.gram(x, x, inv_ls, sv, diag_add=da), torch)
+    plain_ms = timed(lambda: G.gram_plain(x, x, inv_ls, sv, da), torch)
+    lib_ms = timed(library_gram, torch)
+    b_ms, b_by = bound(R * n * n * (3 * d + 3), 4 * (2 * n * d + R * (d + 2) + R * n * n))
+    report["gram"] = dict(
+        name="gram", source="fidelityfusion_tpu_torch/csrc/gram.cu",
+        replaces="benchmarks/retired/pallas_gram.py:85", max_abs_err=err.max().item(),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"R={R} n={n} d={d}")
+    print(f"K1 R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"cdist {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    def nll_of(L, W, y):
+        gamma = W @ y
+        return (0.5 * (gamma * gamma).sum((-2, -1))
+                + torch.log(L.diagonal(dim1=-2, dim2=-1)).sum(-1) + 0.5 * L.shape[-1] * LOG2PI)
+
+    def chol_case(key, R, n, batched):
+        x, inv_ls, sv, da = se_problem(torch, R, n, 1, gen, device)
+        A = G.gram_plain(x, x, inv_ls, sv, da)
+        A = A if batched else A[0]
+        # smooth targets, as the toy data (pure-noise targets load the
+        # Gram's smallest eigenvalues and amplify f32 rounding differences)
+        y = torch.sin(2.0 * x) + 0.05 * torch.randn((n, 1), generator=gen).to(device)
+        L, Wd = chol_inv(A)
+        Lp, Wdp = chol_inv_plain(A.reshape(-1, n, n))
+        Lp = Lp.reshape(A.shape)
+        rel = ((L - Lp).norm(dim=(-2, -1)) / Lp.norm(dim=(-2, -1))).max().item()
+        check(rel <= 1e-4, f"{key} chol R={R} n={n}: rel Frobenius err on L {rel:.3e} (<= 1e-4)")
+        W = tri_inv(L, Wd)
+        Wp = tri_inv_plain(Lp.reshape(-1, n, n), Wdp).reshape(A.shape)
+        res = (W @ L - torch.eye(n, device=device)).abs().max().item()
+        check(res <= 1e-3, f"K3b tri_inv R={R} n={n}: max |W L - I| {res:.3e} (<= 1e-3)")
+        v_k, v_p = nll_of(L, W, y), nll_of(Lp, Wp, y)
+        nrel = ((v_k - v_p).abs() / v_p.abs()).max().item()
+        check(nrel <= 1e-5, f"{key} NLML R={R} n={n}: rel err {nrel:.3e} vs plain (<= 1e-5)")
+        return A, L, Wd, W, Wp, (L - Lp).abs().max().item()
+
+    def chol_report(key, name, A, abs_err, R, n, replaces):
+        ms = timed(lambda: chol_inv(A), torch)
+        plain_ms = timed(lambda: chol_inv_plain(A.reshape(-1, n, n)), torch, max_iters=3)
+        lib_ms = timed(lambda: torch.linalg.cholesky(A), torch)
+        b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (2 * n * n + n * 64))
+        report[name] = dict(
+            name=name, source="fidelityfusion_tpu_torch/csrc/chol.cu", replaces=replaces,
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, shape=f"R={R} n={n}")
+        print(f"{key} R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"torch.linalg.cholesky {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    # ---- K2: one matrix, n = 2048
+    A, L, Wd, W, Wp, abs_err = chol_case("K2", 1, 2048, batched=False)
+    chol_report("K2", "chol", A, abs_err, 1, 2048, "benchmarks/retired/pallas_cholesky.py:213")
+
+    # ---- K3a + K3b: restart batches (4, 256) and (4, 1024); timed at the latter
+    for R, n in ((4, 256), (4, 1024)):
+        A, L, Wd, W, Wp, abs_err = chol_case("K3a", R, n, batched=True)
+    chol_report("K3a", "chol_batched", A, abs_err, R, n,
+                "benchmarks/retired/pallas_batched.py:175")
+    eye = torch.eye(n, device=device).expand(R, n, n)
+    ms = timed(lambda: tri_inv(L, Wd), torch)
+    plain_ms = timed(lambda: tri_inv_plain(L, Wd), torch)
+    lib_ms = timed(lambda: torch.linalg.solve_triangular(L, eye, upper=False), torch)
+    b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (2 * n * n + n * 64))
+    report["tri_inv"] = dict(
+        name="tri_inv", source="fidelityfusion_tpu_torch/csrc/tri_inv.cu",
+        replaces="benchmarks/retired/pallas_batched.py:190",
+        max_abs_err=(W - Wp).abs().max().item(), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=f"R={R} n={n}")
+    print(f"K3b R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"solve_triangular {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+
+def plain_stage_nll(torch, gp, params, x, y, dtype):
+    """A stage's CIGP NLML (no mask, no y_var) through the plain versions
+    of K1, K2 and K3b only, in ``dtype``."""
+    from fidelityfusion_tpu_torch.ops.chol import PANEL, chol_inv_plain, tri_inv_plain
+    from fidelityfusion_tpu_torch.ops.gram import gram_plain
+    from fidelityfusion_tpu_torch.ops.linalg import LOG2PI
+    from fidelityfusion_tpu_torch.utils.tree import tree_map
+
+    params = tree_map(lambda a: a.to(dtype), params)
+    x, y = x.to(dtype), y.to(dtype)
+    n = x.shape[0]
+    inv_ls, sv = gp.kernel.gram_args(params["kernel"], x.shape[1])
+    diag_add = gp.noise(params, sv) + gp.jitter
+    Sigma = gram_plain(x, x, inv_ls[None], sv.reshape(1), diag_add.reshape(1))
+    n_pad = -(-n // PANEL) * PANEL
+    Sp = torch.eye(n_pad, dtype=dtype, device=x.device)[None].clone()
+    Sp[:, :n, :n] = Sigma
+    L, Wd = chol_inv_plain(Sp)
+    W = tri_inv_plain(L, Wd)[0, :n, :n]
+    gamma = W @ y
+    return float(0.5 * (gamma * gamma).sum() + y.shape[1] * torch.log(
+        L[0].diagonal()[:n]).sum() + 0.5 * n * y.shape[1] * LOG2PI)
+
+
+def main_path_setup(device):
+    """(model, data manager, x_test, y_test) of the main path: the toy sin
+    on nested `SIZES`-row subsets of 2048 points, an untrained AR over SE
+    CIGPs on ``device``."""
+    from fidelityfusion_tpu_torch.demo import _toy_3fid
+    from fidelityfusion_tpu_torch.models.ar import AR
+    from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager
+    from fidelityfusion_tpu_torch.ops.kernels import SquaredExponentialKernel
+
+    xs, ys, x_test, y_test = _toy_3fid(seed=1, sizes=SIZES, pool=2048, n_test=1000, nested=True)
+    dm = MultiFidelityDataManager([
+        {"raw_fidelity_name": str(i), "fidelity_indicator": i, "X": x, "Y": y}
+        for i, (x, y) in enumerate(zip(xs, ys))])
+    model = AR(3, [SquaredExponentialKernel() for _ in range(3)], input_dim=1, device=device)
+    return model, dm, x_test, y_test
+
+
+class StageClock:
+    """`train_AR` debugger: host seconds of each stage, synchronized."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.t = time.perf_counter()
+        self.seconds = []
+
+    def record_stage(self, i, hist):
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.seconds.append(now - self.t)
+        self.t = now
+
+
+def main_path(torch, device, iters, report):
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.models.ar import train_AR
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.train.fit import restart_scores
+
+    model, dm, x_test, y_test = main_path_setup(device)
+    cuda.reset_launch_counts()
+    clock = StageClock(torch)
+    hists = train_AR(model, dm, max_iter=iters, lr_init=5e-2, n_restarts=4, debugger=clock)
+    mean, cov = model.forward(dm, x_test)
+    post, state = model.export_posterior(dm)
+    pm, pv = post(state, x_test)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    report["main_counts"] = counts
+
+    mean_np = mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean_np - y_test) ** 2)))
+    for i, h in enumerate(hists):
+        score = restart_scores(h)
+        best = int(np.argmin(score))
+        print(f"stage {i}: rows {SIZES[i]}  final NLML {score[best]:.6f}  "
+              f"chosen restart {best}  restart scores {np.round(score, 4).tolist()}  "
+              f"wall {clock.seconds[i]:.3f} s", flush=True)
+        check(bool(np.isfinite(score[best])), f"stage {i} final NLML finite")
+        # the winner's NLML, re-evaluated through the plain versions on the card
+        gp, p = model.gp_list[i], model.params["gp"][i]
+        if i == 0:
+            x_tr, y_tr = dm.get_data(0, normal=True)
+        else:
+            x_tr, y_tr = dm.get_data_by_name(f"res-{i}")
+            y_tr = y_tr[0]
+        xt = torch.as_tensor(np.asarray(x_tr, np.float32), device=device)
+        yt = torch.as_tensor(np.asarray(y_tr, np.float32), device=device)
+        v_plain = plain_stage_nll(torch, gp, p, xt, yt, torch.float32)
+        v_plain64 = plain_stage_nll(torch, gp, p, xt, yt, torch.float64)
+        with torch.no_grad():
+            v_card = float(gp.nll(p, xt, yt))
+        # fp32 at the trained optimum: the nugget sits near its floor, so
+        # cond(Sigma) ~ 1e6-1e7 and two fp32 factorizations differ by
+        # ~1e-4 of the NLML's O(rows) terms, whatever their order.  Scale:
+        # max(|NLML|, rows); the float64 plain value shows which is closer.
+        scale = max(abs(v_plain), float(xt.shape[0]))
+        rel, rel_train = abs(v_card - v_plain) / scale, abs(score[best] - v_plain) / scale
+        print(f"stage {i}: NLML kernels {v_card:.6f}  training {score[best]:.6f}  plain fp32 "
+              f"{v_plain:.6f}  plain fp64 {v_plain64:.6f}  |kernels - fp64| "
+              f"{abs(v_card - v_plain64):.3e}  |plain fp32 - fp64| {abs(v_plain - v_plain64):.3e}",
+              flush=True)
+        check(rel <= 1e-3 and rel_train <= 1e-3,
+              f"stage {i} NLML kernels vs plain: rel {rel:.2e}, training vs plain {rel_train:.2e} "
+              f"(<= 1e-3 of max(|nll|, rows))")
+    print(f"main path: test RMSE vs sin(x) {rmse:.5f}  wall {sum(clock.seconds):.3f} s "
+          f"(train)  launches {counts}", flush=True)
+    check(bool(np.isfinite(mean_np).all()) and mean_np.shape == (1000, 1)
+          and cov.shape == (1000, 1000), "forward: finite mean (1000, 1), cov (1000, 1000)")
+    check(rmse < 0.1, f"test RMSE {rmse:.5f} < 0.1")
+    dif = (pm - mean).abs().max().item()
+    vdif = (pv - cov.diagonal()).abs().max().item()
+    check(dif < 1e-3 and vdif < 1e-3,
+          f"export_posterior matches forward: max |dmean| {dif:.2e}, |dvar| {vdif:.2e}")
+    for name in ("gram", "chol", "chol_batched", "tri_inv"):
+        check(counts.get(name, 0) > 0, f"main path launched {name} ({counts.get(name, 0)} times)")
+
+
+def unbatched_paths(torch, device):
+    from fidelityfusion_tpu_torch.demo import _toy_3fid
+    from fidelityfusion_tpu_torch.models.cigp import CIGP
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel, SquaredExponentialKernel
+    from fidelityfusion_tpu_torch.train.fit import fit
+
+    xs, ys, _, _ = _toy_3fid(seed=2, sizes=(2048, 1, 1), pool=4096)
+    x = torch.as_tensor(((xs[0] - xs[0].mean()) / xs[0].std()).astype("float32"), device=device)
+    y = torch.as_tensor(((ys[0] - ys[0].mean()) / ys[0].std()).astype("float32"), device=device)
+    for name, kernel in (("se_nlml (SE)", SquaredExponentialKernel()),
+                         ("mvn_nll_hybrid (ARD)", ARDKernel())):
+        gp = CIGP(kernel=kernel)
+        before = cuda.launch_counts().get("chol", 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fit(gp.nll, gp.init_params(1, device=device), steps=20, lr=5e-2,
+                  loss_args=(x, y))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        losses = res.losses.cpu()
+        k2 = cuda.launch_counts().get("chol", 0) - before
+        print(f"unbatched {name} n=2048: NLML {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"{sec / 20 * 1e3:.2f} ms/step, K2 launches {k2}", flush=True)
+        check(bool(torch.isfinite(losses).all()) and losses[-1] < losses[0] and k2 >= 20,
+              f"unbatched {name}: finite, decreasing, through K2")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--iters", type=int, default=200, help="Adam steps per stage")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
+              file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    if not (root / "fidelityfusion_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout (fidelityfusion_tpu_torch/ missing)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    device = torch.device("cuda")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}  "
+          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}  "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}", flush=True)
+
+    from fidelityfusion_tpu_torch.ops import chol, cuda, gram
+
+    t = time.perf_counter()
+    out = cuda.build([gram._LIB, chol._CHOL, chol._TRI], verbose=True)
+    print(f"build: {time.perf_counter() - t:.2f} s", flush=True)
+    for line in out.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  " + line.strip())
+    smi = smi_line()
+    print(smi, flush=True)
+
+    report = {}
+    kernel_checks(torch, device, report)
+    main_path(torch, device, args.iters, report)
+    unbatched_paths(torch, device)
+
+    counts = report["main_counts"]
+    kernels = []
+    for key, label in (("gram", "K1 gram"), ("chol", "K2 chol"),
+                       ("chol_batched", "K3a chol_batched"), ("tri_inv", "K3b tri_inv")):
+        k = dict(report[key])
+        k.update(name=label, route="cuda", launches=counts.get(key, 0))
+        kernels.append({f: k.get(f) for f in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
+        for f in FAILURES:
+            print("  " + f, file=sys.stderr)
+        return 1
+    print(smi_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,134 @@
+"""K2 + K3a (`csrc/chol.cu`) and K3b (`csrc/tri_inv.cu`): the blocked
+Cholesky with its diagonal-block inverses, and the triangular inverse.
+
+    L, Wd = chol_inv(A)      # A (n, n) -> K2,  A (R, n, n) -> K3a
+    W     = tri_inv(L, Wd)   # W = inv(L), K3b
+
+``n`` must be a multiple of `PANEL` (callers pad with identity rows, see
+`ops/blocked.py:chol_inv_padded`).  ``Wd`` holds the inverses of L's 64x64
+diagonal blocks, ``(*batch, n/64, 64, 64)``; the leaf produces them while
+it factors, so the inverse needs no triangular solve anywhere.
+
+Each wrapper launches its kernel on CUDA tensors (float32, contiguous) and
+runs the plain PyTorch version on CPU tensors; `chol_inv_plain` and
+`tri_inv_plain` follow the kernels' blocking step for step.  Neither is
+differentiated: the NLML and posterior functions that call them carry
+closed-form backward passes (`ops/linalg.py`, `ops/fused_se.py`).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from fidelityfusion_tpu_torch.ops import cuda
+
+PANEL = 64
+
+_CHOL = cuda.Library("chol.cu", {"ff_chol_inv": [cuda.PTR, cuda.PTR, cuda.INT, cuda.INT, cuda.PTR]})
+_TRI = cuda.Library("tri_inv.cu", {"ff_tri_inv": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR]})
+CHOL_LAUNCHES = cuda.counter("chol")              # K2: one matrix
+CHOL_BATCHED_LAUNCHES = cuda.counter("chol_batched")  # K3a: a batch
+TRI_INV_LAUNCHES = cuda.counter("tri_inv")        # K3b
+
+
+def _leaf_chol_inv(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unblocked Cholesky of (B, b, b) SPD blocks fused with their inverses
+    (`fidelityfusion_tpu/ops/blocked.py:_leaf_chol_inv`): per column, a
+    rank-1 trailing update of the factor and a rank-1 row update of the
+    running inverse.  A negative or NaN pivot propagates as NaN."""
+    b = D.shape[-1]
+    idx = torch.arange(b, device=D.device)
+    a = D.clone()
+    w = torch.eye(b, dtype=D.dtype, device=D.device).expand_as(D).clone()
+    for j in range(b):
+        d = torch.sqrt(a[:, j, j])
+        col = a[:, :, j] / d[:, None]
+        below = idx > j
+        colm = torch.where(below, col, torch.zeros_like(col))
+        a[:, :, j] = torch.where(idx == j, d[:, None], torch.where(below, col, a[:, :, j]))
+        a = a - colm[:, :, None] * colm[:, None, :]
+        wj = w[:, j, :] / d[:, None]
+        w[:, j, :] = wj
+        w = w - colm[:, :, None] * wj[:, None, :]
+    return torch.tril(a), w
+
+
+def chol_inv_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2/K3a on (B, n, n): right-looking over 64-column
+    panels; fused leaf, panel product with the leaf's inverse, Schur update.
+    Returns (L, Wd) with Wd (B, n/64, 64, 64)."""
+    B, n, _ = A.shape
+    nb = n // PANEL
+    work = A.clone()
+    Wd = A.new_empty((B, nb, PANEL, PANEL))
+    for k in range(nb):
+        s, e = k * PANEL, (k + 1) * PANEL
+        Ld, Wk = _leaf_chol_inv(work[:, s:e, s:e])
+        work[:, s:e, s:e] = Ld
+        Wd[:, k] = Wk
+        if e < n:
+            L21 = work[:, e:, s:e] @ Wk.transpose(1, 2)
+            work[:, e:, s:e] = L21
+            work[:, e:, e:] -= L21 @ L21.transpose(1, 2)
+    return torch.tril(work), Wd
+
+
+def tri_inv_plain(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3b on (B, n, n): the row-block recurrence
+    W[k,k] = W_kk, W[k,:k] = -W_kk (L[k,:k] W[:k,:k])."""
+    B, n, _ = L.shape
+    W = torch.zeros_like(L)
+    for k in range(n // PANEL):
+        s, e = k * PANEL, (k + 1) * PANEL
+        W[:, s:e, s:e] = Wd[:, k]
+        if k:
+            W[:, s:e, :s] = -(Wd[:, k] @ (L[:, s:e, :s] @ W[:, :s, :s]))
+    return W
+
+
+def _check_square(name, A):
+    if A.ndim not in (2, 3) or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"{name}: expected (n, n) or (B, n, n), got {tuple(A.shape)}")
+    if A.shape[-1] % PANEL:
+        raise ValueError(f"{name}: n={A.shape[-1]} is not a multiple of {PANEL}")
+
+
+def chol_inv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, Wd) of SPD ``A``: (n, n) is K2, (B, n, n) is K3a."""
+    _check_square("chol_inv", A)
+    A3 = A.reshape((-1,) + A.shape[-2:])
+    if not A.is_cuda:
+        L, Wd = chol_inv_plain(A3)
+    else:
+        A3 = A3.contiguous()
+        cuda.require_cuda_f32("chol_inv", A3)
+        B, n, _ = A3.shape
+        L = A3.clone()
+        Wd = torch.empty((B, n // PANEL, PANEL, PANEL), dtype=A3.dtype, device=A3.device)
+        if B and n:
+            _CHOL.call("ff_chol_inv", L.data_ptr(), Wd.data_ptr(), B, n,
+                       cuda.stream_ptr(A3.device))
+            (CHOL_LAUNCHES if A.ndim == 2 else CHOL_BATCHED_LAUNCHES).launches += 1
+    return L.reshape(A.shape), Wd.reshape(A.shape[:-2] + Wd.shape[1:])
+
+
+def tri_inv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
+    """W = inv(L) from L and its diagonal-block inverses (K3b)."""
+    _check_square("tri_inv", L)
+    n = L.shape[-1]
+    L3 = L.reshape((-1, n, n))
+    Wd4 = Wd.reshape((-1, n // PANEL, PANEL, PANEL))
+    if Wd4.shape[0] != L3.shape[0]:
+        raise ValueError("tri_inv: L and Wd batch sizes differ")
+    if not L.is_cuda:
+        return tri_inv_plain(L3, Wd4).reshape(L.shape)
+    L3, Wd4 = L3.contiguous(), Wd4.contiguous()
+    cuda.require_cuda_f32("tri_inv", L3, Wd4)
+    W = torch.empty_like(L3)
+    if L3.shape[0] and n:
+        _TRI.call("ff_tri_inv", L3.data_ptr(), Wd4.data_ptr(), W.data_ptr(),
+                  L3.shape[0], n, cuda.stream_ptr(L3.device))
+        TRI_INV_LAUNCHES.launches += 1
+    return W.reshape(L.shape)

@@ -1,0 +1,71 @@
+"""The port and its chip scripts stand alone: they import neither JAX nor
+the JAX package, and the port's entry points never move a run to the CPU
+on their own."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "fidelityfusion_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_ar.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            roots.update(a.value.split(".")[0] for a in node.args[:1]
+                         if isinstance(a, ast.Constant) and isinstance(a.value, str))
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "optax", "fidelityfusion_tpu", "benchmarks"}, roots
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device: the default device is valid here")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from fidelityfusion_tpu_torch import demo
+    from fidelityfusion_tpu_torch.models.ar import AR
+    from fidelityfusion_tpu_torch.models.cigp import CIGP
+    from fidelityfusion_tpu_torch.ops.kernels import SquaredExponentialKernel
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AR(3, [SquaredExponentialKernel()] * 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CIGP(SquaredExponentialKernel()).init_params(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo.main(["AR", "--iters", "1"])
+
+
+def test_chip_smoke_refuses_without_a_card(no_cuda, capsys):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main([]) != 0
+    out = capsys.readouterr().out
+    assert '"ok"' not in out
+
+
+def test_demo_runs_on_cpu_when_asked():
+    from fidelityfusion_tpu_torch import demo
+
+    m = demo.main(["AR", "--device", "cpu", "--iters", "30", "--restarts", "2"])
+    assert np.isfinite(list(m.values())).all() and m["rmse"] < 0.2
