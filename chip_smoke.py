@@ -10,13 +10,19 @@ prints no result line):
    (one `nvcc` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version, the one library
-   call that computes the same function, and the bound from shapes;
+   call that computes the same function, and the bound from shapes; for
+   K2/K3a also time the leaf alone, factor ill-conditioned SE Grams
+   (relative nugget 1e-6) against the plain versions in float32 and
+   float64, and factor a matrix with a negative pivot, which must come
+   out NaN;
 3. the main path: `train_AR` of a 3-fidelity AR cascade over SE CIGPs
    with 4 restarts on nested (1024, 512, 256)-row subsets of the toy sin,
    then `forward` and `export_posterior` on 1000 test points; every
    kernel must have launched in this phase;
 4. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
-   an ARD fit (`mvn_nll_hybrid`).
+   an ARD fit (`mvn_nll_hybrid`);
+5. the device kernels of one K2/K3a call, under `torch.profiler` (last:
+   tracing slows every launch after it).
 
 The second-to-last line is `{"kernels": [...]}`, the last
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
@@ -77,6 +83,46 @@ def bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def nll_of(torch, L, W, y):
+    """NLML of y ~ N(0, L L^T) from L and W = inv(L), batched."""
+    from fidelityfusion_tpu_torch.ops.linalg import LOG2PI
+
+    gamma = W @ y
+    return (0.5 * (gamma * gamma).sum((-2, -1))
+            + torch.log(L.diagonal(dim1=-2, dim2=-1)).sum(-1) + 0.5 * L.shape[-1] * LOG2PI)
+
+
+def device_ops_per_call(torch, fn) -> int:
+    """Device kernels and copies that one call of ``fn`` issues, from
+    `torch.profiler` (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def leaf_us(torch, device, reps: int = 200) -> float:
+    """Microseconds of K2/K3a's 64x64 leaf alone: (time of reps + 1
+    factorizations inside one launch - time of 1) / reps."""
+    from fidelityfusion_tpu_torch.ops.chol import chol_leaf
+
+    D = se_gram(torch, 1, 64, torch.Generator().manual_seed(3), device)
+    t1 = timed(lambda: chol_leaf(D, reps=1), torch)
+    tn = timed(lambda: chol_leaf(D, reps=reps + 1), torch)
+    return (tn - t1) / reps * 1e3
+
+
+def se_gram(torch, R, n, gen, device):
+    """(R, n, n) SE Grams at noise `NOISE` on the toy inputs of `se_problem`."""
+    from fidelityfusion_tpu_torch.ops.gram import gram_plain
+
+    x, inv_ls, sv, da = se_problem(torch, R, n, 1, gen, device)
+    return gram_plain(x, x, inv_ls, sv, da)
+
+
 def se_problem(torch, R, n, d, gen, device):
     """Toy inputs (standardized) and per-restart SE parameters on the card."""
     x = torch.randn((n, d), generator=gen).to(device)
@@ -89,7 +135,6 @@ def kernel_checks(torch, device, report):
     from fidelityfusion_tpu_torch.ops import gram as G
     from fidelityfusion_tpu_torch.ops.chol import (
         chol_inv, chol_inv_plain, tri_inv, tri_inv_plain)
-    from fidelityfusion_tpu_torch.ops.linalg import LOG2PI
 
     gen = torch.Generator().manual_seed(0)
 
@@ -126,11 +171,6 @@ def kernel_checks(torch, device, report):
     print(f"K1 R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
           f"cdist {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
 
-    def nll_of(L, W, y):
-        gamma = W @ y
-        return (0.5 * (gamma * gamma).sum((-2, -1))
-                + torch.log(L.diagonal(dim1=-2, dim2=-1)).sum(-1) + 0.5 * L.shape[-1] * LOG2PI)
-
     def chol_case(key, R, n, batched):
         x, inv_ls, sv, da = se_problem(torch, R, n, 1, gen, device)
         A = G.gram_plain(x, x, inv_ls, sv, da)
@@ -147,32 +187,37 @@ def kernel_checks(torch, device, report):
         Wp = tri_inv_plain(Lp.reshape(-1, n, n), Wdp).reshape(A.shape)
         res = (W @ L - torch.eye(n, device=device)).abs().max().item()
         check(res <= 1e-3, f"K3b tri_inv R={R} n={n}: max |W L - I| {res:.3e} (<= 1e-3)")
-        v_k, v_p = nll_of(L, W, y), nll_of(Lp, Wp, y)
+        v_k, v_p = nll_of(torch, L, W, y), nll_of(torch, Lp, Wp, y)
         nrel = ((v_k - v_p).abs() / v_p.abs()).max().item()
         check(nrel <= 1e-5, f"{key} NLML R={R} n={n}: rel err {nrel:.3e} vs plain (<= 1e-5)")
         return A, L, Wd, W, Wp, (L - Lp).abs().max().item()
 
-    def chol_report(key, name, A, abs_err, R, n, replaces):
+    def chol_timing(key, A, R, n):
         ms = timed(lambda: chol_inv(A), torch)
         plain_ms = timed(lambda: chol_inv_plain(A.reshape(-1, n, n)), torch, max_iters=3)
         lib_ms = timed(lambda: torch.linalg.cholesky(A), torch)
         b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (2 * n * n + n * 64))
-        report[name] = dict(
-            name=name, source="fidelityfusion_tpu_torch/csrc/chol.cu", replaces=replaces,
-            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms, shape=f"R={R} n={n}")
         print(f"{key} R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"torch.linalg.cholesky {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        return dict(shape=f"R={R} n={n}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms)
 
-    # ---- K2: one matrix, n = 2048
-    A, L, Wd, W, Wp, abs_err = chol_case("K2", 1, 2048, batched=False)
-    chol_report("K2", "chol", A, abs_err, 1, 2048, "benchmarks/retired/pallas_cholesky.py:213")
+    # ---- K2 (one matrix) and K3a (a restart batch): checked and timed at
+    # each shape, reported at the largest; K3b checked on every factor
+    leaf = leaf_us(torch, device)
+    print(f"K2/K3a leaf alone: {leaf:.3f} us", flush=True)
+    for key, name, replaces, shapes in (
+            ("K2", "chol", "benchmarks/retired/pallas_cholesky.py:213", ((1, 1024), (1, 2048))),
+            ("K3a", "chol_batched", "benchmarks/retired/pallas_batched.py:175",
+             ((4, 256), (4, 512), (4, 1024)))):
+        rows = []
+        for R, n in shapes:
+            A, L, Wd, W, Wp, abs_err = chol_case(key, R, n, batched=key == "K3a")
+            rows.append(dict(chol_timing(key, A, R, n), max_abs_err=abs_err))
+        report[name] = dict(rows[-1], name=name, source="fidelityfusion_tpu_torch/csrc/chol.cu",
+                            replaces=replaces, shapes=rows, leaf_us=leaf)
 
-    # ---- K3a + K3b: restart batches (4, 256) and (4, 1024); timed at the latter
-    for R, n in ((4, 256), (4, 1024)):
-        A, L, Wd, W, Wp, abs_err = chol_case("K3a", R, n, batched=True)
-    chol_report("K3a", "chol_batched", A, abs_err, R, n,
-                "benchmarks/retired/pallas_batched.py:175")
+    # ---- K3b at the last K3a shape, (4, 1024)
     eye = torch.eye(n, device=device).expand(R, n, n)
     ms = timed(lambda: tri_inv(L, Wd), torch)
     plain_ms = timed(lambda: tri_inv_plain(L, Wd), torch)
@@ -185,6 +230,87 @@ def kernel_checks(torch, device, report):
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=f"R={R} n={n}")
     print(f"K3b R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
           f"solve_triangular {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+
+def count_device_ops(torch, device, report):
+    """Device kernels and copies of one K2 call at n = 2048 and one K3a call
+    at (4, 1024), under `torch.profiler`.  Run last: tracing, once started,
+    slows every later launch on the host."""
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv
+
+    gen = torch.Generator().manual_seed(7)
+    for key, name, R, n in (("K2", "chol", 1, 2048), ("K3a", "chol_batched", 4, 1024)):
+        A = se_gram(torch, R, n, gen, device)
+        A = A[0] if R == 1 else A
+        ops = device_ops_per_call(torch, lambda: chol_inv(A))
+        print(f"{key} R={R} n={n}: {ops} device kernel(s) and copies per call "
+              f"(3 n/64 - 2 = {3 * n // 64 - 2} kernels before this design)", flush=True)
+        check(ops == 1, f"{key}: one device kernel per factorization ({ops})")
+        report[name]["device_ops_per_call"] = ops
+
+
+def ill_conditioned_checks(torch, device):
+    """K2 and K3a (with K3b) on 8 SE Grams at relative nugget 1e-6 on 1024
+    evenly spaced points, length scales about 1.8 spacings: ill-conditioned,
+    yet still positive definite once rounded to float32.  Their error against
+    the plain version in float64 must stay within twice the plain float32
+    version's, on L (Frobenius, over the batch) and on the NLML (summed
+    over the batch: one matrix's NLML error is too noisy to compare)."""
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain, tri_inv, tri_inv_plain
+    from fidelityfusion_tpu_torch.ops.gram import gram_plain
+
+    R, n = 8, 1024
+    x = torch.linspace(-3.0, 3.0, n, device=device)[:, None]
+    ls = 1.8 * 6.0 / (n - 1) * torch.linspace(0.9, 1.1, R, device=device)
+    sv = torch.linspace(0.5, 2.0, R, device=device)
+    A = gram_plain(x, x, (1.0 / ls)[:, None].contiguous(), sv, 1e-6 * sv)
+    gen = torch.Generator().manual_seed(5)
+    y = torch.sin(2.0 * x) + 0.05 * torch.randn((n, 1), generator=gen).to(device)
+
+    def factor_plain(M):
+        L, Wd = chol_inv_plain(M)
+        return L, tri_inv_plain(L, Wd)
+
+    L64, W64 = factor_plain(A.double())
+    v64 = nll_of(torch, L64, W64, y.double())
+    L32, W32 = factor_plain(A)
+    err_L32 = (L32.double() - L64).norm().item()
+    err_v32 = (nll_of(torch, L32, W32, y).double() - v64).abs().sum().item()
+    for key, factor in (
+            ("K3a", lambda: chol_inv(A)),
+            ("K2", lambda: tuple(torch.stack(t) for t in zip(*(chol_inv(a) for a in A))))):
+        L, Wd = factor()
+        W = tri_inv(L, Wd)
+        err_L = (L.double() - L64).norm().item()
+        err_v = (nll_of(torch, L, W, y).double() - v64).abs().sum().item()
+        print(f"{key} ill-conditioned R={R} n={n}: |L - L64|_F kernel {err_L:.4e} plain fp32 "
+              f"{err_L32:.4e}; sum |NLML - NLML64| kernel {err_v:.4e} plain fp32 {err_v32:.4e} "
+              f"(sum |NLML64| {v64.abs().sum().item():.4e})", flush=True)
+        check(err_L <= 2 * err_L32 and err_v <= 2 * err_v32,
+              f"{key} ill-conditioned: kernel's error vs fp64 within 2x the plain fp32 "
+              f"version's (L {err_L / err_L32:.3f}x, NLML {err_v / err_v32:.3f}x)")
+
+
+def nan_pivot_check(torch, device):
+    """A negative pivot in panel 2 of matrix 1 of a K3a batch, and alone
+    through K2: NaN from there on in that factor and its NLML, the other
+    matrices as the plain version has them, and the launch returns."""
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain, tri_inv
+
+    A = se_gram(torch, 3, 512, torch.Generator().manual_seed(6), device)
+    A[1, 150, 150] = -1.0
+    y = torch.ones((512, 1), device=device)
+    L, Wd = chol_inv(A)
+    v = nll_of(torch, L, tri_inv(L, Wd), y)
+    L2, _ = chol_inv(A[1])
+    torch.cuda.synchronize()
+    Lp, _ = chol_inv_plain(A[[0, 2]])
+    rel = ((L[[0, 2]] - Lp).norm(dim=(1, 2)) / Lp.norm(dim=(1, 2))).max().item()
+    ok = (bool(torch.isnan(L[1, 150:, 150]).all()) and bool(torch.isnan(v[1]))
+          and bool(torch.isfinite(L[1, :128]).all()) and bool(torch.isfinite(v[[0, 2]]).all())
+          and bool(torch.isnan(L2[150:, 150]).all()) and rel <= 1e-4)
+    check(ok, f"negative pivot: NaN in that factor and its NLML (K3a and K2), the others "
+              f"finite and within {rel:.2e} of plain")
 
 
 def plain_stage_nll(torch, gp, params, x, y, dtype):
@@ -375,8 +501,11 @@ def main(argv=None) -> int:
 
     report = {}
     kernel_checks(torch, device, report)
+    ill_conditioned_checks(torch, device)
+    nan_pivot_check(torch, device)
     main_path(torch, device, args.iters, report)
     unbatched_paths(torch, device)
+    count_device_ops(torch, device, report)
 
     counts = report["main_counts"]
     kernels = []
@@ -386,7 +515,8 @@ def main(argv=None) -> int:
         k.update(name=label, route="cuda", launches=counts.get(key, 0))
         kernels.append({f: k.get(f) for f in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")})
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape") + tuple(
+            f for f in ("leaf_us", "device_ops_per_call", "shapes") if f in k)})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -1,151 +1,509 @@
 // K2 + K3a: blocked right-looking Cholesky with the diagonal-block inverses,
 // for one matrix (K2, B = 1) or a batch of restarts (K3a, B = R).
 //
-// Replaces benchmarks/retired/pallas_cholesky.py:cholesky_blocked (K2;
-// pallas_call at :213, body _chol_kernel :96, helpers _chol_unblocked :41 and
-// _tri_inv_lower :72) and benchmarks/retired/pallas_batched.py:cholesky_vmem
-// (K3a; pallas_call at :175, body _chol_vmem_kernel :107).  On the TPU, K3a
-// kept a whole n <= 1024 matrix in 16 MB of VMEM; a CTA here has 227 KB, so
-// both become the same factorization with a batch dimension, in the order of
-// fidelityfusion_tpu/ops/blocked.py:blocked_chol_inv_v2.  Host loop over
-// panels of 64 columns; per panel k:
-//   1. chol_leaf_kernel, one CTA per matrix: the 64x64 diagonal block in
-//      shared memory, factored by a rank-1 column sweep that builds its
-//      inverse W_kk in the same sweep (ops/blocked.py:_leaf_chol_inv);
-//      writes L_kk over A_kk, W_kk to Wd, and zeros the column strip above;
-//   2. chol_panel_kernel: L21 = A21 W_kk^T, one 64-row tile per CTA, in place;
-//   3. chol_trailing_kernel: A22 -= L21 L21^T on lower-triangle tiles only.
-// Steps 2 and 3 are tiled SIMT GEMMs in fp32 FMA.
+// Replaces benchmarks/retired/pallas_cholesky.py:199 cholesky_blocked (K2;
+// pallas_call at :213) and benchmarks/retired/pallas_batched.py:166
+// cholesky_vmem (K3a; pallas_call at :175, body _chol_vmem_kernel :107, its
+// diagonal blocks by _chol_recursive :80 and _tri_inv_recursive :94).  On the
+// TPU, K3a kept a whole n <= 1024 matrix in 16 MB of VMEM and walked the
+// panels in order on one core; a CTA here has 227 KB, so both become one
+// factorization with a batch dimension, spread over the SMs.
 //
-// Bound on the H100: operations, n^3/3 per matrix at the fp32 rate (67
-// TFLOP/s without tensor cores).  What this simple version does about it:
-// nothing beyond 64x64 shared-memory tiles with 4x4 register blocking; the
-// leaf is a serial 64-step chain per panel and each panel costs three
-// launches, so small n is launch- and latency-bound.  Larger register
-// tiles and a persistent trailing update are later work (wgmma has no
-// full-fp32 mode, so the tensor cores stay out of reach at this precision).
+// Bound on the H100: by operations, n^3/3 FMA pairs per matrix at the fp32
+// rate (67 TFLOP/s; every product here is full fp32, no TF32), 21-43 us at
+// the main path's sizes.  In practice it is bound by the chain of n/64
+// dependent panels: each panel's 64x64 diagonal block must be updated and
+// factored before anything below it can move, so one panel costs a tile
+// product, the leaf, a second tile product and two grid barriers whatever n
+// is.  What this design does about it:
+//   * one persistent cooperative launch per factorization (grid sized from
+//     the occupancy and capped by the work, one CTA per SM so that the CTA
+//     on the chain has its SM alone), phases separated by grid barriers,
+//     instead of three launches per panel;
+//   * the leaf is written for warps and recursive as _chol_recursive is: the
+//     64x64 block is split 2x2; each 32x32 diagonal block is factored by one
+//     warp in registers with no block barrier (leaf32), and the three 32x32
+//     products of the recursion run on all four warps;
+//   * look-ahead: while the grid applies panel k's trailing update, the CTA
+//     that owns matrix b's next diagonal block updates that block first and
+//     factors it, so the leaf overlaps the widest phase;
+//   * the panel solve L21 = A21 W_kk^T and the lower-triangle trailing update
+//     are 64x64x64 tile products, 4x8 outputs a thread, operands staged in
+//     shared memory by cp.async in two stages over the 64-deep product.
+// The factor is written to a separate output, so no copy precedes the launch.
+// Every barrier is reached by every thread whatever the data: a negative or
+// NaN pivot propagates as NaN (training rolls such a step back).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-using ff::NTHREADS;
-using ff::TB;
-using ff::TPAD;
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void chol_leaf_kernel(float* __restrict__ Lw, float* __restrict__ Wd,
-                                 int n, int k) {
-  __shared__ float a[TB][TPAD];
-  __shared__ float w[TB][TPAD];
-  __shared__ float col[TB];
-  __shared__ float wj[TB];
-  const int tid = threadIdx.x;
-  const int nb = n / TB;
-  const size_t s = (size_t)k * TB;
-  float* A = Lw + (size_t)blockIdx.x * n * n;
-  float* Wk = Wd + ((size_t)blockIdx.x * nb + k) * TB * TB;
-  for (int e = tid; e < TB * TB; e += NTHREADS) {
-    const int r = e / TB, c = e % TB;
-    a[r][c] = A[(s + r) * n + s + c];
-    w[r][c] = r == c ? 1.f : 0.f;
+constexpr int P = 64;         // panel = tile = leaf width (Wd's blocks)
+constexpr int H = 32;         // leaf base case, one warp
+constexpr int LD = P + 4;     // 16-byte rows; 8 consecutive rows' float4s hit distinct banks
+constexpr int LDH = H + 4;
+constexpr int THREADS = 128;  // 4 warps
+constexpr unsigned FULL = 0xffffffffu;
+
+struct Smem {
+  float a[P][LD];    // operand A; the leaf's block, becoming L
+  float b[P][LD];    // operand B; the leaf's inverse W
+  float wt[H][LDH];  // leaf: W11 transposed
+  float tt[H][LDH];  // leaf: (L21 W11) transposed
+  float col[2][H];   // leaf32: the current step's column, by parity of the step
+  float inv_d[H];    // leaf32: 1 / L_jj
+};
+
+// Each kernel's shared memory, named here so that the functions below
+// (not inlined, to keep the code small) address it as shared.
+__shared__ __align__(16) Smem sm;
+
+// Cycle stamps of CTA 0's thread 0 at points of the leaf and of gemm_tile,
+// compiled in only with -DFF_CHOL_PROBE (scripts/probe_torch_chol.py).
+#ifdef FF_CHOL_PROBE
+__device__ long long* ff_probe_stamps;
+#define FF_STAMP(i) \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && ff_probe_stamps) ff_probe_stamps[i] = clock64()
+#else
+#define FF_STAMP(i)
+#endif
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// S[0:64, h*32 : h*32+32] <- G (row-major, leading dimension ld), asynchronously.
+__device__ __forceinline__ void load_half(float (*S)[LD], const float* G, size_t ld, int h) {
+  for (int e = threadIdx.x; e < P * 8; e += THREADS) {
+    const int r = e >> 3, c = h * 32 + (e & 7) * 4;
+    cp_async16(&S[r][c], G + r * ld + c);
   }
-  __syncthreads();
-  for (int j = 0; j < TB; ++j) {
-    // a NaN or negative pivot propagates (training rolls the step back)
-    const float d = sqrtf(a[j][j]);
-    if (tid < TB) {
-      col[tid] = tid > j ? a[tid][j] / d : 0.f;
-      wj[tid] = w[j][tid] / d;
-    }
-    __syncthreads();
-    for (int e = tid; e < TB * TB; e += NTHREADS) {
-      const int r = e / TB, c = e % TB;
-      if (c == j) {
-        if (r > j) a[r][j] = col[r];
-        else if (r == j) a[j][j] = d;
-      } else if (c > j && r > j) {
-        a[r][c] -= col[r] * col[c];
+}
+
+// acc[i][j] += sum_{q in [q0, q0+32)} A[tr + 16i][q] B[tc + 8j][q],
+// tr = thread / 8, tc = thread % 8.
+__device__ __forceinline__ void nt64_half(const float (*A)[LD], const float (*B)[LD], int q0,
+                                          float acc[4][8]) {
+  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+#pragma unroll 2
+  for (int q = q0; q < q0 + 32; q += 4) {
+    float4 a[4], b[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(&A[tr + 16 * i][q]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(&B[tc + 8 * j][q]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
       }
-      // W <- inv(E_j) W: row j scaled, rows below get -L_rj / d * row j
-      if (r == j) w[j][c] = wj[c];
-      else if (r > j) w[r][c] -= col[r] * wj[c];
-    }
+  }
+}
+
+enum Epilogue { STORE, SUB, SUB_TO_SMEM };
+
+// acc = Ag Bg^T for 64x64 row-major tiles (Ag with leading dimension ld, Bg
+// with ldb; Bg == Ag reads the operand once), then by `mode`:
+//   STORE: out = acc;   SUB: out = C - acc;   SUB_TO_SMEM: sm.a = C - acc
+// (C and out with leading dimension ld).  Not inlined: one copy of the code
+// serves every phase, which keeps the kernel small.
+__device__ __noinline__ void gemm_tile(const float* Ag, const float* Bg, size_t ldb,
+                                       size_t ld, const float* C, float* out, int mode) {
+  const bool same = Ag == Bg;
+  __syncthreads();  // the previous user of sm is done
+  FF_STAMP(5);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    load_half(sm.a, Ag, ld, h);
+    if (!same) load_half(sm.b, Bg, ldb, h);
+    cp_async_commit();
+  }
+  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  float acc[4][8], cv[4][8];
+  if (mode != STORE) {  // C's loads fly while the product runs
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cv[i][j] = __ldcg(C + (tr + 16 * i) * ld + tc + 8 * j);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const float(*B)[LD] = same ? sm.a : sm.b;
+  cp_async_wait<1>();
+  __syncthreads();
+  FF_STAMP(6);
+  nt64_half(sm.a, B, 0, acc);
+  cp_async_wait<0>();
+  __syncthreads();
+  nt64_half(sm.a, B, 32, acc);
+  FF_STAMP(7);
+  if (mode == STORE) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) out[(tr + 16 * i) * ld + tc + 8 * j] = acc[i][j];
+  } else if (mode == SUB) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) out[(tr + 16 * i) * ld + tc + 8 * j] = cv[i][j] - acc[i][j];
+  } else {
+    __syncthreads();  // every thread is done with the operand in sm.a
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sm.a[tr + 16 * i][tc + 8 * j] = cv[i][j] - acc[i][j];
     __syncthreads();
   }
-  for (int e = tid; e < TB * TB; e += NTHREADS) {
-    const int r = e / TB, c = e % TB;
-    A[(s + r) * n + s + c] = r >= c ? a[r][c] : 0.f;
-    Wk[e] = w[r][c];
+  FF_STAMP(8);
+}
+
+// One warp: L, W = L^{-1} of the 32x32 SPD block S (lower part read), with
+// no block barrier.  Writes L and W with zeros above the diagonal, and W^T
+// to Wt if given.  S may be Lo; LT (32 x LDH) is scratch.  A pivot that is
+// not positive makes everything after it NaN.
+//
+// L: the 32 column steps of ops/blocked.py:_leaf_chol_inv.  Lane r keeps
+// in registers row r of the block's trailing columns, shifted left by one at
+// every step so that column j is always a[0]: every step is the same short
+// branch-free body.  At step j each lane publishes its raw entry a_rj in
+// sm.col (rotated, so that the warp reads the trailing ones as aligned
+// float4 broadcasts) and subtracts t_r = a_rj / a_jj times them, so
+// 1/sqrt(a_jj) (rsqrtf and one Newton step) is not waited for before the
+// publication.  Column j of L also goes to LT[j], rotated the same way.
+//
+// W: forward substitution L W = I after the sweep, lane c computing column
+// c of W with the right-hand sides of the rows not yet done in registers
+// (shifted as a is).  The JAX leaf builds W in the sweep by row updates;
+// here that puts a broadcast of row j of W on every step of the sweep,
+// while the substitution's loads do not depend on the lanes' results.
+__device__ __forceinline__ void leaf32(const float* S, float* Lo, float* Wo, float* Wt,
+                                       float (*LT)[LDH]) {
+  const int r = threadIdx.x & 31;
+  float a[H];
+#pragma unroll
+  for (int c = 0; c < H; ++c) a[c] = S[r * LD + c];
+#pragma unroll 2
+  for (int j = 0; j < H; ++j) {
+    const float p = __shfl_sync(FULL, a[0], j);
+    float* col = sm.col[j & 1];
+    col[(r - j) & 31] = r > j ? a[0] : 0.f;  // col[c]: a_{j+c, j}
+    float inv_d = rsqrtf(p);
+    inv_d *= fmaf(-0.5f * p * inv_d, inv_d, 1.5f);
+    const float t = r > j ? a[0] * (inv_d * inv_d) : 0.f;
+    const float l = r == j ? p * inv_d : (r > j ? a[0] * inv_d : 0.f);
+    Lo[r * LD + j] = l;
+    LT[j][(r - j) & 31] = l;  // LT[j][q]: L_{j+q, j}, zero past the last row
+    if (r == j) sm.inv_d[j] = inv_d;
+    __syncwarp();
+    float4 m[H / 4];  // all loads first: one latency per step, not eight
+#pragma unroll
+    for (int c = 0; c < H; c += 4) m[c / 4] = *reinterpret_cast<const float4*>(&col[c]);
+#pragma unroll
+    for (int c = 0; c < H; c += 4) {
+      if (c) a[c - 1] = fmaf(-t, m[c / 4].x, a[c]);
+      a[c] = fmaf(-t, m[c / 4].y, a[c + 1]);
+      a[c + 1] = fmaf(-t, m[c / 4].z, a[c + 2]);
+      a[c + 2] = fmaf(-t, m[c / 4].w, a[c + 3]);
+    }
   }
-  for (size_t e = tid; e < s * TB; e += NTHREADS) {
-    A[(e / TB) * n + s + e % TB] = 0.f;  // strictly upper strip of column block k
+  __syncwarp();
+  // rows of L W = I in order: W_ic = b_i / L_ii, then b_q -= L_qi W_ic below
+  const int c = r;
+  float b[H];  // b[q]: the right-hand side of row i + q at row step i
+#pragma unroll
+  for (int q = 0; q < H; ++q) b[q] = q == c ? 1.f : 0.f;
+  float4 m[H / 4];  // row i of LT; row i + 1 is loaded while row i is used
+  float id = sm.inv_d[0];
+#pragma unroll
+  for (int q = 0; q < H; q += 4) m[q / 4] = *reinterpret_cast<const float4*>(&LT[0][q]);
+#pragma unroll 1
+  for (int i = 0; i < H; ++i) {
+    const int in = (i + 1) & (H - 1);
+    float4 mn[H / 4];
+#pragma unroll
+    for (int q = 0; q < H; q += 4) mn[q / 4] = *reinterpret_cast<const float4*>(&LT[in][q]);
+    const float idn = sm.inv_d[in];
+    const float x = b[0] * id;
+    Wo[i * LD + c] = c <= i ? x : 0.f;
+    if (Wt) Wt[c * LDH + i] = c <= i ? x : 0.f;
+#pragma unroll
+    for (int q = 0; q < H; q += 4) {
+      if (q) b[q - 1] = fmaf(-m[q / 4].x, x, b[q]);
+      b[q] = fmaf(-m[q / 4].y, x, b[q + 1]);
+      b[q + 1] = fmaf(-m[q / 4].z, x, b[q + 2]);
+      b[q + 2] = fmaf(-m[q / 4].w, x, b[q + 3]);
+    }
+#pragma unroll
+    for (int q = 0; q < H / 4; ++q) m[q] = mn[q];
+    id = idn;
   }
 }
 
-__global__ void chol_panel_kernel(float* __restrict__ Lw,
-                                  const float* __restrict__ Wd, int n, int k) {
-  __shared__ float As[TB][TPAD];
-  __shared__ float Bs[TB][TPAD];
-  const int nb = n / TB;
-  const size_t s = (size_t)k * TB;
-  const size_t r0 = s + TB + (size_t)blockIdx.x * TB;
-  float* A = Lw + (size_t)blockIdx.y * n * n;
-  const float* Wk = Wd + ((size_t)blockIdx.y * nb + k) * TB * TB;
-  ff::load_tile(As, A + r0 * n + s, n);
-  ff::load_tile_t(Bs, Wk, TB);
-  __syncthreads();
-  float acc[4][4] = {};
-  ff::tile_fma(As, Bs, acc);
-  // in place: this CTA alone reads rows r0..r0+63 of the panel, and it has
-  // them in shared memory already
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// acc[i][j] = sum_{q < 32} A[r0 + i][q] B[c0 + 8j][q] for a 32x32 output,
+// r0 = 2 (thread / 8), c0 = thread % 8.
+__device__ __forceinline__ void nt32(const float* A, int lda, const float* B, int ldb,
+                                     float acc[2][4]) {
+  const int r0 = (threadIdx.x >> 3) * 2, c0 = threadIdx.x & 7;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int q = 0; q < H; q += 4) {
+    float4 a[2], b[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) a[i] = *reinterpret_cast<const float4*>(&A[(r0 + i) * lda + q]);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      A[(r0 + ty + 16 * i) * n + s + tx + 16 * j] = acc[i][j];
+      b[j] = *reinterpret_cast<const float4*>(&B[(c0 + 8 * j) * ldb + q]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
 }
 
-__global__ void chol_trailing_kernel(float* __restrict__ Lw, int n, int k) {
-  const int tj = blockIdx.x, ti = blockIdx.y;
-  if (tj > ti) return;  // lower-triangle tiles only
-  __shared__ float As[TB][TPAD];
-  __shared__ float Bs[TB][TPAD];
-  const size_t s = (size_t)k * TB;
-  const size_t ri = s + TB + (size_t)ti * TB, rj = s + TB + (size_t)tj * TB;
-  float* A = Lw + (size_t)blockIdx.z * n * n;
-  ff::load_tile(As, A + ri * n + s, n);
-  ff::load_tile_t(Bs, A + rj * n + s, n);
+// The 64x64 SPD block in sm.a (lower part) becomes L in sm.a (zeros above)
+// and W = L^{-1} in sm.b, by the recursion of _chol_recursive /
+// _tri_inv_recursive with 32-wide warp leaves:
+//   L11, W11 = leaf(A11);  L21 = A21 W11^T;  L22, W22 = leaf(A22 - L21 L21^T);
+//   W21 = -W22 (L21 W11).
+// Call with the block loaded and the CTA synchronized; returns synchronized.
+__device__ __noinline__ void leaf64() {
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (threadIdx.x >> 3) * 2, c0 = threadIdx.x & 7;
+  float acc[2][4], t[2][4];
+  FF_STAMP(0);
+  if (warp == 0) {
+    leaf32(&sm.a[0][0], &sm.a[0][0], &sm.b[0][0], &sm.wt[0][0], sm.tt);
+  } else {  // the upper quadrants of L and W
+    for (int e = threadIdx.x - 32; e < H * H; e += THREADS - 32) {
+      sm.a[e / H][H + e % H] = 0.f;
+      sm.b[e / H][H + e % H] = 0.f;
+    }
+  }
   __syncthreads();
-  float acc[4][4] = {};
-  ff::tile_fma(As, Bs, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  FF_STAMP(1);
+  nt32(&sm.a[H][0], LD, &sm.b[0][0], LD, acc);  // L21 = A21 W11^T
+  __syncthreads();                               // A21 read by all
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      A[(ri + ty + 16 * i) * n + rj + tx + 16 * j] -= acc[i][j];
+    for (int j = 0; j < 4; ++j) sm.a[H + r0 + i][c0 + 8 * j] = acc[i][j];
+  __syncthreads();
+  nt32(&sm.a[H][0], LD, &sm.a[H][0], LD, acc);  // L21 L21^T
+  nt32(&sm.a[H][0], LD, &sm.wt[0][0], LDH, t);  // T = L21 W11
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sm.a[H + r0 + i][H + c0 + 8 * j] -= acc[i][j];
+      sm.tt[c0 + 8 * j][r0 + i] = t[i][j];
+    }
+  __syncthreads();
+  FF_STAMP(2);
+  if (warp == 0) leaf32(&sm.a[H][H], &sm.a[H][H], &sm.b[H][H], nullptr, sm.wt);
+  __syncthreads();
+  FF_STAMP(3);
+  nt32(&sm.b[H][H], LD, &sm.tt[0][0], LDH, acc);  // W22 T
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sm.b[H + r0 + i][c0 + 8 * j] = -acc[i][j];
+  __syncthreads();
+  FF_STAMP(4);
 }
+
+// G[0:64, 0:64] <- S (leading dimensions ld and LD).
+__device__ __forceinline__ void store_tile(float* G, size_t ld, const float (*S)[LD]) {
+  for (int e = threadIdx.x; e < P * 16; e += THREADS) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(G + r * ld + c) = *reinterpret_cast<const float4*>(&S[r][c]);
+  }
+}
+
+// sm.a <- G[0:64, 0:64] and wait.
+__device__ __forceinline__ void load_tile(const float* G, size_t ld) {
+  __syncthreads();
+  load_half(sm.a, G, ld, 0);
+  load_half(sm.a, G, ld, 1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Factor the block in sm.a; write L to G (leading dimension ld) and W to Wk (64x64).
+__device__ __forceinline__ void leaf_and_store(float* G, size_t ld, float* Wk) {
+  leaf64();
+  store_tile(G, ld, sm.a);
+  store_tile(Wk, P, sm.b);
+}
+
+// src (B, n, n) SPD, read only; dst (B, n, n) receives L (zeros above the
+// diagonal); Wd (B, n/64, 64, 64) the inverses of L's diagonal blocks.
+// Until panel k has updated a tile, its value is read from src, afterwards
+// from dst.  Launched cooperatively: every CTA reaches every grid.sync().
+__global__ void __launch_bounds__(THREADS) chol_kernel(const float* src, float* dst, float* Wd,
+                                                       int B, int n) {
+  cg::grid_group grid = cg::this_grid();
+  const int nb = n / P, G = gridDim.x, g = blockIdx.x;
+  const size_t nn = static_cast<size_t>(n) * n;
+  auto tile = [&](auto* base, int b, int i, int j) {
+    return base + b * nn + static_cast<size_t>(i) * P * n + static_cast<size_t>(j) * P;
+  };
+  auto wdk = [&](int b, int k) { return Wd + (static_cast<size_t>(b) * nb + k) * P * P; };
+
+  for (int b = g; b < B; b += G) {  // the leaf of panel 0
+    load_tile(tile(src, b, 0, 0), n);
+    leaf_and_store(tile(dst, b, 0, 0), n, wdk(b, 0));
+  }
+  for (int k = 0; k + 1 < nb; ++k) {
+    const float* cur = k == 0 ? src : dst;  // where panel k's trailing matrix lives
+    const int m = nb - k - 1;              // block rows below panel k
+    grid.sync();
+    // panel k: L21 = A21 W_kk^T in place, and zeros over the upper tiles of row k
+    for (int t = g; t < 2 * B * m; t += G) {
+      const int b = (t / m) % B, i = k + 1 + t % m;
+      if (t < B * m) {
+        gemm_tile(tile(cur, b, i, k), wdk(b, k), P, n, nullptr, tile(dst, b, i, k), STORE);
+      } else {
+        float* out = tile(dst, b, k, i);
+        for (int e = threadIdx.x; e < P * 16; e += THREADS)
+          *reinterpret_cast<float4*>(out + (e >> 4) * static_cast<size_t>(n) + (e & 15) * 4) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    grid.sync();
+    // trailing update of panel k.  Look-ahead: the CTA of matrix b updates
+    // block (k+1, k+1) first and factors it (panel k+1's leaf) ...
+    for (int b = g; b < B; b += G) {
+      const float* l = tile(dst, b, k + 1, k);
+      gemm_tile(l, l, n, n, tile(cur, b, k + 1, k + 1), nullptr, SUB_TO_SMEM);
+      leaf_and_store(tile(dst, b, k + 1, k + 1), n, wdk(b, k + 1));
+    }
+    // ... while the other CTAs (all of them if the grid is not larger than
+    // the batch) take the other lower tiles A_ij -= L_ik L_jk^T, k < j <= i.
+    const int per = m * (m + 1) / 2 - 1;
+    const int w0 = G > B ? B : 0, nw = G - w0;
+    if (g >= w0) {
+      for (int t = g - w0; t < B * per; t += nw) {
+        const int b = t / per, u = t % per + 1;
+        int ii = static_cast<int>((sqrtf(8.f * u + 1.f) - 1.f) * 0.5f);
+        while (ii * (ii + 1) / 2 > u) --ii;
+        while ((ii + 1) * (ii + 2) / 2 <= u) ++ii;
+        const int i = k + 1 + ii, j = k + 1 + u - ii * (ii + 1) / 2;
+        gemm_tile(tile(dst, b, i, k), tile(dst, b, j, k), n, n, tile(cur, b, i, j),
+                  tile(dst, b, i, j), SUB);
+      }
+    }
+  }
+}
+
+// The leaf alone on (B, 64, 64) blocks, one CTA each, repeated reps times
+// (reps > 1 times the leaf without the launch).
+__global__ void __launch_bounds__(THREADS) chol_leaf_kernel(const float* D, float* L, float* W,
+                                                            int reps) {
+  const size_t off = static_cast<size_t>(blockIdx.x) * P * P;
+  for (int it = 0; it < reps; ++it) {
+    load_tile(D + off, P);
+    leaf_and_store(L + off, P, W + off);
+  }
+}
+
+#ifdef FF_CHOL_PROBE
+// reps grid barriers; CTA 0 records their cycles
+__global__ void probe_grid_sync_kernel(int reps, long long* cycles) {
+  cg::grid_group grid = cg::this_grid();
+  const long long t0 = clock64();
+  for (int i = 0; i < reps; ++i) grid.sync();
+  if (threadIdx.x == 0 && blockIdx.x == 0) *cycles = clock64() - t0;
+}
+
+// reps tile products C -= A[0:64] A[64:128]^T (leading dimension n) by one CTA
+__global__ void probe_gemm_kernel(const float* A, float* C, int n, int reps, long long* cycles) {
+  const long long t0 = clock64();
+  for (int i = 0; i < reps; ++i) gemm_tile(A, A + 64 * n, n, n, C, C, SUB);
+  if (threadIdx.x == 0) *cycles = clock64() - t0;
+}
+#endif
 
 }  // namespace
 
-// L: (B, n, n) holding A on entry and L (upper triangle zero) on exit;
-// Wd: (B, n/64, 64, 64) receives the diagonal-block inverses.  n % 64 == 0.
-extern "C" int ff_chol_inv(float* L, float* Wd, int B, int n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = n / TB;
-  for (int k = 0; k < nb; ++k) {
-    chol_leaf_kernel<<<B, NTHREADS, 0, st>>>(L, Wd, n, k);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int t = nb - k - 1;
-    if (t > 0) {
-      chol_panel_kernel<<<dim3(t, B), NTHREADS, 0, st>>>(L, Wd, n, k);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      chol_trailing_kernel<<<dim3(t, t, B), NTHREADS, 0, st>>>(L, n, k);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+#ifdef FF_CHOL_PROBE
+extern "C" int ff_probe_set_stamps(long long* stamps) {
+  return static_cast<int>(cudaMemcpyToSymbol(ff_probe_stamps, &stamps, sizeof(stamps)));
+}
+
+extern "C" int ff_probe_grid_sync(int grid, int reps, long long* cycles) {
+  void* args[] = {&reps, &cycles};
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(probe_grid_sync_kernel),
+                                                dim3(grid), dim3(THREADS), args, 0, 0);
+  return static_cast<int>(err == cudaSuccess ? cudaDeviceSynchronize() : err);
+}
+
+extern "C" int ff_probe_gemm(const float* A, float* C, int n, int reps, long long* cycles) {
+  probe_gemm_kernel<<<1, THREADS>>>(A, C, n, reps, cycles);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+#endif
+
+// A (B, n, n) SPD; L (B, n, n) receives the factor, zeros above the diagonal;
+// Wd (B, n/64, 64, 64) the diagonal-block inverses.  n % 64 == 0.  One
+// cooperative launch of at most ctas_per_sm CTAs per SM (fewer if the
+// occupancy or the work is smaller); a refused launch returns its error.
+extern "C" int ff_chol_inv(const float* A, float* L, float* Wd, int B, int n, int ctas_per_sm,
+                           void* stream) {
+  if (B <= 0 || n <= 0) return 0;
+  // the SM count and the kernel's occupancy, queried once per device: the
+  // queries cost more host time than a small factorization takes on the card
+  static int cached_dev = -1, sms = 0, occ = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev != cached_dev) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, chol_kernel, THREADS, 0);
+    if (err == cudaSuccess) cached_dev = dev;
   }
-  return 0;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long nb = n / P;
+  const long long work = B * (nb * (nb - 1) / 2 > 1 ? nb * (nb - 1) / 2 : 1);
+  long long grid = static_cast<long long>(occ < ctas_per_sm ? occ : ctas_per_sm) * sms;
+  if (grid > work) grid = work;
+  if (grid < 1) grid = 1;
+  void* args[] = {&A, &L, &Wd, &B, &n};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(chol_kernel),
+                                    dim3(static_cast<unsigned>(grid)), dim3(THREADS), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// D (B, 64, 64) SPD blocks; L, W (B, 64, 64) receive the leaf's factor and inverse.
+extern "C" int ff_chol_leaf(const float* D, float* L, float* W, int B, int reps, void* stream) {
+  chol_leaf_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(D, L, W, reps);
+  return static_cast<int>(cudaGetLastError());
 }

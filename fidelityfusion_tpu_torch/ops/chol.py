@@ -25,11 +25,19 @@ import torch
 from fidelityfusion_tpu_torch.ops import cuda
 
 PANEL = 64
+LEAF_BASE = 32  # the leaf's base case: one warp factors a 32x32 block in registers
+# K2/K3a's persistent grid: CTAs per SM (capped by occupancy and by the work);
+# more CTAs shorten the widest GEMM phase but lengthen every grid barrier
+CTAS_PER_SM = 1
 
-_CHOL = cuda.Library("chol.cu", {"ff_chol_inv": [cuda.PTR, cuda.PTR, cuda.INT, cuda.INT, cuda.PTR]})
+_CHOL = cuda.Library("chol.cu", {
+    "ff_chol_inv": [cuda.PTR] * 3 + [cuda.INT] * 3 + [cuda.PTR],
+    "ff_chol_leaf": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR],
+})
 _TRI = cuda.Library("tri_inv.cu", {"ff_tri_inv": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR]})
 CHOL_LAUNCHES = cuda.counter("chol")              # K2: one matrix
 CHOL_BATCHED_LAUNCHES = cuda.counter("chol_batched")  # K3a: a batch
+CHOL_LEAF_LAUNCHES = cuda.counter("chol_leaf")    # the K2/K3a leaf alone (checks, timing)
 TRI_INV_LAUNCHES = cuda.counter("tri_inv")        # K3b
 
 
@@ -55,17 +63,38 @@ def _leaf_chol_inv(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.tril(a), w
 
 
+def _leaf_chol_inv_rec(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's leaf on (B, b, b) SPD blocks: halve as
+    `benchmarks/retired/pallas_batched.py:_chol_recursive` does, with
+    `_leaf_chol_inv` on `LEAF_BASE`-wide diagonal blocks and the inverse
+    built as `_tri_inv_recursive` does:
+    L21 = A21 W11^T,  L22 W22 = leaf(A22 - L21 L21^T),  W21 = -W22 (L21 W11)."""
+    b = D.shape[-1]
+    if b <= LEAF_BASE:
+        return _leaf_chol_inv(D)
+    h = b // 2
+    L11, W11 = _leaf_chol_inv_rec(D[:, :h, :h])
+    L21 = D[:, h:, :h] @ W11.transpose(1, 2)
+    L22, W22 = _leaf_chol_inv_rec(D[:, h:, h:] - L21 @ L21.transpose(1, 2))
+    W21 = -(W22 @ (L21 @ W11))
+    z = D.new_zeros(D.shape[:-2] + (h, b - h))
+    return (torch.cat([torch.cat([L11, z], -1), torch.cat([L21, L22], -1)], -2),
+            torch.cat([torch.cat([W11, z], -1), torch.cat([W21, W22], -1)], -2))
+
+
 def chol_inv_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2/K3a on (B, n, n): right-looking over 64-column
-    panels; fused leaf, panel product with the leaf's inverse, Schur update.
-    Returns (L, Wd) with Wd (B, n/64, 64, 64)."""
+    panels; the recursive leaf (`_leaf_chol_inv_rec`), panel product with
+    the leaf's inverse, Schur update.  (The kernel factors panel k + 1's
+    diagonal block while the rest of panel k's update runs: a schedule, the
+    same arithmetic.)  Returns (L, Wd) with Wd (B, n/64, 64, 64)."""
     B, n, _ = A.shape
     nb = n // PANEL
     work = A.clone()
     Wd = A.new_empty((B, nb, PANEL, PANEL))
     for k in range(nb):
         s, e = k * PANEL, (k + 1) * PANEL
-        Ld, Wk = _leaf_chol_inv(work[:, s:e, s:e])
+        Ld, Wk = _leaf_chol_inv_rec(work[:, s:e, s:e])
         work[:, s:e, s:e] = Ld
         Wd[:, k] = Wk
         if e < n:
@@ -105,13 +134,32 @@ def chol_inv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         A3 = A3.contiguous()
         cuda.require_cuda_f32("chol_inv", A3)
         B, n, _ = A3.shape
-        L = A3.clone()
+        L = torch.empty_like(A3)  # the kernel writes every element of L
         Wd = torch.empty((B, n // PANEL, PANEL, PANEL), dtype=A3.dtype, device=A3.device)
         if B and n:
-            _CHOL.call("ff_chol_inv", L.data_ptr(), Wd.data_ptr(), B, n,
-                       cuda.stream_ptr(A3.device))
+            _CHOL.call("ff_chol_inv", A3.data_ptr(), L.data_ptr(), Wd.data_ptr(), B, n,
+                       CTAS_PER_SM, cuda.stream_ptr(A3.device))
             (CHOL_LAUNCHES if A.ndim == 2 else CHOL_BATCHED_LAUNCHES).launches += 1
     return L.reshape(A.shape), Wd.reshape(A.shape[:-2] + Wd.shape[1:])
+
+
+def chol_leaf(D: torch.Tensor, reps: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, W = inv(L)) of (B, 64, 64) SPD blocks by K2/K3a's leaf alone, one
+    CTA per block (`_leaf_chol_inv_rec` on CPU tensors).  ``reps`` > 1
+    repeats each factorization inside the launch, to time the leaf without
+    the launch."""
+    if D.ndim != 3 or D.shape[-2:] != (PANEL, PANEL):
+        raise ValueError(f"chol_leaf: expected (B, {PANEL}, {PANEL}), got {tuple(D.shape)}")
+    if not D.is_cuda:
+        return _leaf_chol_inv_rec(D)
+    D = D.contiguous()
+    cuda.require_cuda_f32("chol_leaf", D)
+    L, W = torch.empty_like(D), torch.empty_like(D)
+    if D.shape[0]:
+        _CHOL.call("ff_chol_leaf", D.data_ptr(), L.data_ptr(), W.data_ptr(), D.shape[0],
+                   max(1, reps), cuda.stream_ptr(D.device))
+        CHOL_LEAF_LAUNCHES.launches += 1
+    return L, W
 
 
 def tri_inv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:

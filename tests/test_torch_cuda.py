@@ -44,7 +44,8 @@ def test_gram_kernel_matches_plain(dev, n1, n2, d):
     torch.testing.assert_close(got, gram_plain(x1, x2, inv_ls, sv, da, yv), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("R,n", [(1, 64), (1, 512), (4, 256), (3, 192)])
+@pytest.mark.parametrize("R,n", [(1, 64), (1, 512), (4, 256), (3, 192), (1, 2048), (4, 1024),
+                                 (32, 256)])
 def test_chol_and_tri_inv_kernels_match_plain(dev, R, n):
     from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain, tri_inv, tri_inv_plain
 
@@ -58,3 +59,44 @@ def test_chol_and_tri_inv_kernels_match_plain(dev, R, n):
     torch.cuda.synchronize()
     assert (W @ L - torch.eye(n, device=dev)).abs().max().item() <= 1e-3
     torch.testing.assert_close(W, tri_inv_plain(L, Wd.reshape(Wdp.shape)), rtol=1e-3, atol=1e-3)
+
+
+def test_chol_leaf_kernel_matches_plain(dev):
+    from fidelityfusion_tpu_torch.ops.chol import _leaf_chol_inv_rec, chol_leaf
+
+    A = _spd(dev, 8, 64)
+    L, W = chol_leaf(A, reps=3)
+    Lp, Wp = _leaf_chol_inv_rec(A)
+    torch.cuda.synchronize()
+    # float32 rounding alone moves single entries of L by ~1e-5 on these
+    # blocks, so the bars are the factorization's: relative Frobenius error
+    # and the inverse's residual
+    for got, want in ((L, Lp), (W, Wp)):
+        assert ((got - want).norm(dim=(1, 2)) / want.norm(dim=(1, 2))).max().item() <= 1e-4
+    assert (W @ L - torch.eye(64, device=dev)).abs().max().item() <= 1e-3
+
+
+def test_chol_kernel_negative_pivot_gives_nan_and_returns(dev):
+    """A negative pivot in panel 2 of matrix 1: NaN from there on in that
+    factor, the other matrices untouched, and the launch completes."""
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain
+
+    A = _spd(dev, 3, 512)
+    A[1, 150, 150] = -1.0
+    L, Wd = chol_inv(A)
+    torch.cuda.synchronize()
+    assert torch.isnan(L[1, 150:, 150]).all() and torch.isnan(Wd[1, 2:]).any()
+    assert torch.isfinite(L[1, :128]).all()
+    Lp, _ = chol_inv_plain(A[[0, 2]])
+    rel = ((L[[0, 2]] - Lp).norm(dim=(1, 2)) / Lp.norm(dim=(1, 2))).max().item()
+    assert rel <= 1e-4
+
+
+def test_chol_kernel_back_to_back_calls_are_bit_identical(dev):
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv
+
+    A = _spd(dev, 4, 512)
+    L0, Wd0 = chol_inv(A)
+    outs = [chol_inv(A) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(L, L0) and torch.equal(Wd, Wd0) for L, Wd in outs)
