@@ -9,17 +9,16 @@
 // panels in order on one core; a CTA here has 227 KB, so both become one
 // factorization with a batch dimension, spread over the SMs.
 //
-// Bound on the H100: by operations, n^3/3 FMA pairs per matrix at the fp32
-// rate (67 TFLOP/s; every product here is full fp32, no TF32), 21-43 us at
-// the main path's sizes.  In practice it is bound by the chain of n/64
-// dependent panels: each panel's 64x64 diagonal block must be updated and
-// factored before anything below it can move, so one panel costs a tile
-// product, the leaf, a second tile product and two grid barriers whatever n
-// is.  What this design does about it:
-//   * one persistent cooperative launch per factorization (grid sized from
-//     the occupancy and capped by the work, one CTA per SM so that the CTA
-//     on the chain has its SM alone), phases separated by grid barriers,
-//     instead of three launches per panel;
+// Bound on the H100: by operations, n^3/3 FLOPs (n^3/6 FMAs) per matrix at
+// the fp32 rate (67 TFLOP/s; every product here is full fp32, no TF32),
+// 21-43 us at the main path's sizes.  In practice it is bound by the chain
+// of n/64 dependent panels: each panel's 64x64 diagonal block must be
+// updated and factored before anything below it can move, so one panel
+// costs a tile product, the leaf, a second tile product and two grid
+// barriers whatever n is.  What this design does about it:
+//   * one persistent cooperative launch per factorization (one CTA per SM,
+//     capped by the work, so that the CTA on the chain has its SM alone),
+//     phases separated by grid barriers, instead of three launches per panel;
 //   * the leaf is written for warps and recursive as _chol_recursive is: the
 //     64x64 block is split 2x2; each 32x32 diagonal block is factored by one
 //     warp in registers with no block barrier (leaf32), and the three 32x32
@@ -60,16 +59,6 @@ struct Smem {
 // Each kernel's shared memory, named here so that the functions below
 // (not inlined, to keep the code small) address it as shared.
 __shared__ __align__(16) Smem sm;
-
-// Cycle stamps of CTA 0's thread 0 at points of the leaf and of gemm_tile,
-// compiled in only with -DFF_CHOL_PROBE (scripts/probe_torch_chol.py).
-#ifdef FF_CHOL_PROBE
-__device__ long long* ff_probe_stamps;
-#define FF_STAMP(i) \
-  if (threadIdx.x == 0 && blockIdx.x == 0 && ff_probe_stamps) ff_probe_stamps[i] = clock64()
-#else
-#define FF_STAMP(i)
-#endif
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -126,7 +115,6 @@ __device__ __noinline__ void gemm_tile(const float* Ag, const float* Bg, size_t 
                                        size_t ld, const float* C, float* out, int mode) {
   const bool same = Ag == Bg;
   __syncthreads();  // the previous user of sm is done
-  FF_STAMP(5);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     load_half(sm.a, Ag, ld, h);
@@ -148,12 +136,10 @@ __device__ __noinline__ void gemm_tile(const float* Ag, const float* Bg, size_t 
   const float(*B)[LD] = same ? sm.a : sm.b;
   cp_async_wait<1>();
   __syncthreads();
-  FF_STAMP(6);
   nt64_half(sm.a, B, 0, acc);
   cp_async_wait<0>();
   __syncthreads();
   nt64_half(sm.a, B, 32, acc);
-  FF_STAMP(7);
   if (mode == STORE) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -172,7 +158,6 @@ __device__ __noinline__ void gemm_tile(const float* Ag, const float* Bg, size_t 
       for (int j = 0; j < 8; ++j) sm.a[tr + 16 * i][tc + 8 * j] = cv[i][j] - acc[i][j];
     __syncthreads();
   }
-  FF_STAMP(8);
 }
 
 // One warp: L, W = L^{-1} of the 32x32 SPD block S (lower part read), with
@@ -296,7 +281,6 @@ __device__ __noinline__ void leaf64() {
   const int warp = threadIdx.x >> 5;
   const int r0 = (threadIdx.x >> 3) * 2, c0 = threadIdx.x & 7;
   float acc[2][4], t[2][4];
-  FF_STAMP(0);
   if (warp == 0) {
     leaf32(&sm.a[0][0], &sm.a[0][0], &sm.b[0][0], &sm.wt[0][0], sm.tt);
   } else {  // the upper quadrants of L and W
@@ -306,7 +290,6 @@ __device__ __noinline__ void leaf64() {
     }
   }
   __syncthreads();
-  FF_STAMP(1);
   nt32(&sm.a[H][0], LD, &sm.b[0][0], LD, acc);  // L21 = A21 W11^T
   __syncthreads();                               // A21 read by all
 #pragma unroll
@@ -324,17 +307,14 @@ __device__ __noinline__ void leaf64() {
       sm.tt[c0 + 8 * j][r0 + i] = t[i][j];
     }
   __syncthreads();
-  FF_STAMP(2);
   if (warp == 0) leaf32(&sm.a[H][H], &sm.a[H][H], &sm.b[H][H], nullptr, sm.wt);
   __syncthreads();
-  FF_STAMP(3);
   nt32(&sm.b[H][H], LD, &sm.tt[0][0], LDH, acc);  // W22 T
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) sm.b[H + r0 + i][c0 + 8 * j] = -acc[i][j];
   __syncthreads();
-  FF_STAMP(4);
 }
 
 // G[0:64, 0:64] <- S (leading dimensions ld and LD).
@@ -433,67 +413,23 @@ __global__ void __launch_bounds__(THREADS) chol_leaf_kernel(const float* D, floa
   }
 }
 
-#ifdef FF_CHOL_PROBE
-// reps grid barriers; CTA 0 records their cycles
-__global__ void probe_grid_sync_kernel(int reps, long long* cycles) {
-  cg::grid_group grid = cg::this_grid();
-  const long long t0 = clock64();
-  for (int i = 0; i < reps; ++i) grid.sync();
-  if (threadIdx.x == 0 && blockIdx.x == 0) *cycles = clock64() - t0;
-}
-
-// reps tile products C -= A[0:64] A[64:128]^T (leading dimension n) by one CTA
-__global__ void probe_gemm_kernel(const float* A, float* C, int n, int reps, long long* cycles) {
-  const long long t0 = clock64();
-  for (int i = 0; i < reps; ++i) gemm_tile(A, A + 64 * n, n, n, C, C, SUB);
-  if (threadIdx.x == 0) *cycles = clock64() - t0;
-}
-#endif
-
 }  // namespace
-
-#ifdef FF_CHOL_PROBE
-extern "C" int ff_probe_set_stamps(long long* stamps) {
-  return static_cast<int>(cudaMemcpyToSymbol(ff_probe_stamps, &stamps, sizeof(stamps)));
-}
-
-extern "C" int ff_probe_grid_sync(int grid, int reps, long long* cycles) {
-  void* args[] = {&reps, &cycles};
-  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(probe_grid_sync_kernel),
-                                                dim3(grid), dim3(THREADS), args, 0, 0);
-  return static_cast<int>(err == cudaSuccess ? cudaDeviceSynchronize() : err);
-}
-
-extern "C" int ff_probe_gemm(const float* A, float* C, int n, int reps, long long* cycles) {
-  probe_gemm_kernel<<<1, THREADS>>>(A, C, n, reps, cycles);
-  return static_cast<int>(cudaDeviceSynchronize());
-}
-#endif
 
 // A (B, n, n) SPD; L (B, n, n) receives the factor, zeros above the diagonal;
 // Wd (B, n/64, 64, 64) the diagonal-block inverses.  n % 64 == 0.  One
-// cooperative launch of at most ctas_per_sm CTAs per SM (fewer if the
-// occupancy or the work is smaller); a refused launch returns its error.
-extern "C" int ff_chol_inv(const float* A, float* L, float* Wd, int B, int n, int ctas_per_sm,
-                           void* stream) {
+// cooperative launch of one CTA per SM, fewer if the work is smaller: at two
+// per SM the CTA on the chain shares its SM, and on an H100 80GB HBM3 (700 W)
+// K2 at n = 2048 took 0.81 ms against 0.70 and K3a at (4, 1024) 0.40 against
+// 0.35, equal below n = 1024.  A refused launch returns its error.
+extern "C" int ff_chol_inv(const float* A, float* L, float* Wd, int B, int n, void* stream) {
   if (B <= 0 || n <= 0) return 0;
-  // the SM count and the kernel's occupancy, queried once per device: the
-  // queries cost more host time than a small factorization takes on the card
-  static int cached_dev = -1, sms = 0, occ = 0;
-  int dev = 0;
+  int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && dev != cached_dev) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, chol_kernel, THREADS, 0);
-    if (err == cudaSuccess) cached_dev = dev;
-  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nb = n / P;
   const long long work = B * (nb * (nb - 1) / 2 > 1 ? nb * (nb - 1) / 2 : 1);
-  long long grid = static_cast<long long>(occ < ctas_per_sm ? occ : ctas_per_sm) * sms;
-  if (grid > work) grid = work;
-  if (grid < 1) grid = 1;
+  const long long grid = sms < work ? sms : work;
   void* args[] = {&A, &L, &Wd, &B, &n};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(chol_kernel),
                                     dim3(static_cast<unsigned>(grid)), dim3(THREADS), args, 0,

@@ -26,12 +26,9 @@ from fidelityfusion_tpu_torch.ops import cuda
 
 PANEL = 64
 LEAF_BASE = 32  # the leaf's base case: one warp factors a 32x32 block in registers
-# K2/K3a's persistent grid: CTAs per SM (capped by occupancy and by the work);
-# more CTAs shorten the widest GEMM phase but lengthen every grid barrier
-CTAS_PER_SM = 1
 
 _CHOL = cuda.Library("chol.cu", {
-    "ff_chol_inv": [cuda.PTR] * 3 + [cuda.INT] * 3 + [cuda.PTR],
+    "ff_chol_inv": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR],
     "ff_chol_leaf": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR],
 })
 _TRI = cuda.Library("tri_inv.cu", {"ff_tri_inv": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR]})
@@ -138,7 +135,7 @@ def chol_inv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         Wd = torch.empty((B, n // PANEL, PANEL, PANEL), dtype=A3.dtype, device=A3.device)
         if B and n:
             _CHOL.call("ff_chol_inv", A3.data_ptr(), L.data_ptr(), Wd.data_ptr(), B, n,
-                       CTAS_PER_SM, cuda.stream_ptr(A3.device))
+                       cuda.stream_ptr(A3.device))
             (CHOL_LAUNCHES if A.ndim == 2 else CHOL_BATCHED_LAUNCHES).launches += 1
     return L.reshape(A.shape), Wd.reshape(A.shape[:-2] + Wd.shape[1:])
 

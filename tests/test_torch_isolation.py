@@ -11,8 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "fidelityfusion_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_ar.py",
-    ROOT / "scripts" / "bench_torch_chol.py", ROOT / "scripts" / "probe_torch_chol.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_ar.py"]
 
 
 def _imported_roots(path):
