@@ -10,19 +10,22 @@ prints no result line):
    (one `nvcc` per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, and time kernel, plain version, the one library
-   call that computes the same function, and the bound from shapes; for
-   K2/K3a also time the leaf alone, factor ill-conditioned SE Grams
-   (relative nugget 1e-6) against the plain versions in float32 and
-   float64, and factor a matrix with a negative pivot, which must come
-   out NaN;
+   call that computes the same function, and the bound from shapes (K1
+   and K3b by device time, from a CUDA graph of their calls; K2/K3a by
+   CUDA events over back-to-back calls, each longer than its enqueue);
+   K3b at every K3a shape and at n = 2048; for K2/K3a also time the leaf
+   alone; factor ill-conditioned SE Grams (relative nugget 1e-6) through
+   K2/K3a and K3b against the plain versions in float32 and float64, and
+   a batch with a negative pivot, whose factor, inverse and NLML must
+   come out NaN while the other matrices' do not;
 3. the main path: `train_AR` of a 3-fidelity AR cascade over SE CIGPs
    with 4 restarts on nested (1024, 512, 256)-row subsets of the toy sin,
    then `forward` and `export_posterior` on 1000 test points; every
    kernel must have launched in this phase;
 4. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
    an ARD fit (`mvn_nll_hybrid`);
-5. the device kernels of one K2/K3a call, under `torch.profiler` (last:
-   tracing slows every launch after it).
+5. the device kernels of one K2/K3a call and one K3b call, under
+   `torch.profiler` (last: tracing slows every launch after it).
 
 The second-to-last line is `{"kernels": [...]}`, the last
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
@@ -74,6 +77,33 @@ def timed(fn, torch, budget_s: float = 0.3, max_iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn``: ``calls`` calls captured
+    in one CUDA graph (their outputs kept, so each writes memory of its
+    own), replayed ``reps`` times between CUDA events.  The wrapper's
+    Python runs at capture only, so this is the device's time where a
+    call's enqueue takes longer than its kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch.cuda.graph asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph, keep = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            keep.append(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def bound(flops: float, nbytes: float):
@@ -159,17 +189,26 @@ def kernel_checks(torch, device, report):
         K = sv[:, None, None] * torch.exp(-0.5 * torch.cdist(xs, xs) ** 2)
         return K + da[:, None, None] * torch.eye(n, device=device)
 
-    ms = timed(lambda: G.gram(x, x, inv_ls, sv, diag_add=da), torch)
-    plain_ms = timed(lambda: G.gram_plain(x, x, inv_ls, sv, da), torch)
-    lib_ms = timed(library_gram, torch)
+    # device time: a call's enqueue (autograd Function, checks, ctypes)
+    # outlasts this kernel, so CUDA events over back-to-back calls would
+    # time the host
+    ms = device_ms(torch, lambda: G.gram(x, x, inv_ls, sv, diag_add=da))
+    call_ms = timed(lambda: G.gram(x, x, inv_ls, sv, diag_add=da), torch)
+    cross_ms = device_ms(torch, lambda: G.gram(x, xt, inv_ls, sv))
+    plain_ms = device_ms(torch, lambda: G.gram_plain(x, x, inv_ls, sv, da))
+    lib_ms = device_ms(torch, library_gram)
     b_ms, b_by = bound(R * n * n * (3 * d + 3), 4 * (2 * n * d + R * (d + 2) + R * n * n))
+    bc_ms, _ = bound(R * n * 1000 * (3 * d + 2), 4 * ((n + 1000) * d + 2 * R + R * n * 1000))
     report["gram"] = dict(
         name="gram", source="fidelityfusion_tpu_torch/csrc/gram.cu",
         replaces="benchmarks/retired/pallas_gram.py:85", max_abs_err=err.max().item(),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"R={R} n={n} d={d}")
-    print(f"K1 R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"cdist {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        shape=f"R={R} n={n} d={d}", timing="device time, CUDA graph of 20 calls",
+        call_ms=call_ms, cross_ms=cross_ms, cross_bound_ms=bc_ms)
+    print(f"K1 R={R} n={n} d={d}: kernel {ms * 1e3:.3f} us by device time (CUDA graph of 20 "
+          f"calls; {call_ms * 1e3:.3f} us a call by events over back-to-back calls)  plain "
+          f"{plain_ms:.4f} ms  cdist {lib_ms:.4f} ms  bound {b_ms * 1e3:.3f} us ({b_by}); "
+          f"cross-Gram {n}x1000 {cross_ms * 1e3:.3f} us (bound {bc_ms * 1e3:.3f} us)", flush=True)
 
     def chol_case(key, R, n, batched):
         x, inv_ls, sv, da = se_problem(torch, R, n, 1, gen, device)
@@ -187,56 +226,73 @@ def kernel_checks(torch, device, report):
         Wp = tri_inv_plain(Lp.reshape(-1, n, n), Wdp).reshape(A.shape)
         res = (W @ L - torch.eye(n, device=device)).abs().max().item()
         check(res <= 1e-3, f"K3b tri_inv R={R} n={n}: max |W L - I| {res:.3e} (<= 1e-3)")
+        # the plain K3b on the kernels' own L and Wd
+        Wk = tri_inv_plain(L.reshape(-1, n, n), Wd.reshape(-1, n // 64, 64, 64)).reshape(A.shape)
+        err_w = (W - Wk).abs()
+        check(bool((err_w <= 1e-3 + 1e-3 * Wk.abs()).all()),
+              f"K3b tri_inv R={R} n={n}: W vs plain on the same L, Wd: max abs err "
+              f"{err_w.max().item():.3e} (rtol, atol 1e-3)")
         v_k, v_p = nll_of(torch, L, W, y), nll_of(torch, Lp, Wp, y)
         nrel = ((v_k - v_p).abs() / v_p.abs()).max().item()
         check(nrel <= 1e-5, f"{key} NLML R={R} n={n}: rel err {nrel:.3e} vs plain (<= 1e-5)")
-        return A, L, Wd, W, Wp, (L - Lp).abs().max().item()
+        return A, L, Wd, (L - Lp).abs().max().item(), err_w.max().item()
+
+    def tri_inv_timing(L, Wd, abs_err, R, n):
+        # device time: at n <= 512 a call's enqueue outlasts the kernel
+        eye = torch.eye(n, device=device).expand(L.shape)
+        ms = device_ms(torch, lambda: tri_inv(L, Wd))
+        plain_ms = device_ms(torch, lambda: tri_inv_plain(
+            L.reshape(-1, n, n), Wd.reshape(-1, n // 64, 64, 64)), calls=3, reps=2)
+        lib_ms = device_ms(torch, lambda: torch.linalg.solve_triangular(L, eye, upper=False))
+        # bytes: L's strictly lower tiles read (its diagonal blocks come
+        # from Wd), Wd read, all of W written
+        b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (n * (n - 64) // 2 + n * n + n * 64))
+        print(f"K3b R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"solve_triangular {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}), all by device "
+              f"time (CUDA graphs)", flush=True)
+        return dict(shape=f"R={R} n={n}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms, max_abs_err=abs_err)
 
     def chol_timing(key, A, R, n):
         ms = timed(lambda: chol_inv(A), torch)
         plain_ms = timed(lambda: chol_inv_plain(A.reshape(-1, n, n)), torch, max_iters=3)
         lib_ms = timed(lambda: torch.linalg.cholesky(A), torch)
-        b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (2 * n * n + n * 64))
+        # bytes: A's lower tiles read (diagonal included), all of L and Wd written
+        b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (n * (n + 64) // 2 + n * n + n * 64))
         print(f"{key} R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"torch.linalg.cholesky {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
         return dict(shape=f"R={R} n={n}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib_ms)
 
     # ---- K2 (one matrix) and K3a (a restart batch): checked and timed at
-    # each shape, reported at the largest; K3b checked on every factor
+    # each shape, reported at the largest; K3b checked on every factor and
+    # timed at the K3a shapes and n = 2048, reported at (4, 1024)
     leaf = leaf_us(torch, device)
     print(f"K2/K3a leaf alone: {leaf:.3f} us", flush=True)
+    tri_rows = {}
     for key, name, replaces, shapes in (
             ("K2", "chol", "benchmarks/retired/pallas_cholesky.py:213", ((1, 1024), (1, 2048))),
             ("K3a", "chol_batched", "benchmarks/retired/pallas_batched.py:175",
              ((4, 256), (4, 512), (4, 1024)))):
         rows = []
         for R, n in shapes:
-            A, L, Wd, W, Wp, abs_err = chol_case(key, R, n, batched=key == "K3a")
+            A, L, Wd, abs_err, w_err = chol_case(key, R, n, batched=key == "K3a")
             rows.append(dict(chol_timing(key, A, R, n), max_abs_err=abs_err))
+            if key == "K3a" or n == 2048:
+                tri_rows[(R, n)] = tri_inv_timing(L, Wd, w_err, R, n)
         report[name] = dict(rows[-1], name=name, source="fidelityfusion_tpu_torch/csrc/chol.cu",
                             replaces=replaces, shapes=rows, leaf_us=leaf)
-
-    # ---- K3b at the last K3a shape, (4, 1024)
-    eye = torch.eye(n, device=device).expand(R, n, n)
-    ms = timed(lambda: tri_inv(L, Wd), torch)
-    plain_ms = timed(lambda: tri_inv_plain(L, Wd), torch)
-    lib_ms = timed(lambda: torch.linalg.solve_triangular(L, eye, upper=False), torch)
-    b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (2 * n * n + n * 64))
     report["tri_inv"] = dict(
-        name="tri_inv", source="fidelityfusion_tpu_torch/csrc/tri_inv.cu",
+        tri_rows[(4, 1024)], name="tri_inv", source="fidelityfusion_tpu_torch/csrc/tri_inv.cu",
         replaces="benchmarks/retired/pallas_batched.py:190",
-        max_abs_err=(W - Wp).abs().max().item(), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=f"R={R} n={n}")
-    print(f"K3b R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"solve_triangular {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        shapes=[tri_rows[k] for k in sorted(tri_rows, key=lambda k: (k[1], k[0]))])
 
 
 def count_device_ops(torch, device, report):
-    """Device kernels and copies of one K2 call at n = 2048 and one K3a call
-    at (4, 1024), under `torch.profiler`.  Run last: tracing, once started,
-    slows every later launch on the host."""
-    from fidelityfusion_tpu_torch.ops.chol import chol_inv
+    """Device kernels and copies of one K2 call at n = 2048, one K3a call
+    at (4, 1024) and one K3b call at each, under `torch.profiler`.  Run
+    last: tracing, once started, slows every later launch on the host."""
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv, tri_inv
 
     gen = torch.Generator().manual_seed(7)
     for key, name, R, n in (("K2", "chol", 1, 2048), ("K3a", "chol_batched", 4, 1024)):
@@ -244,9 +300,15 @@ def count_device_ops(torch, device, report):
         A = A[0] if R == 1 else A
         ops = device_ops_per_call(torch, lambda: chol_inv(A))
         print(f"{key} R={R} n={n}: {ops} device kernel(s) and copies per call "
-              f"(3 n/64 - 2 = {3 * n // 64 - 2} kernels before this design)", flush=True)
+              f"(3 n/64 - 2 = {3 * n // 64 - 2} kernels before the cooperative design)", flush=True)
         check(ops == 1, f"{key}: one device kernel per factorization ({ops})")
         report[name]["device_ops_per_call"] = ops
+        L, Wd = chol_inv(A)
+        ops = device_ops_per_call(torch, lambda: tri_inv(L, Wd))
+        print(f"K3b R={R} n={n}: {ops} device kernel(s) and copies per call "
+              f"(n/64 = {n // 64} launches before the cooperative design)", flush=True)
+        check(ops == 1, f"K3b R={R} n={n}: one device kernel per inverse ({ops})")
+        report["tri_inv"].setdefault("device_ops_per_call", {})[f"R={R} n={n}"] = ops
 
 
 def ill_conditioned_checks(torch, device):
@@ -293,24 +355,30 @@ def ill_conditioned_checks(torch, device):
 
 def nan_pivot_check(torch, device):
     """A negative pivot in panel 2 of matrix 1 of a K3a batch, and alone
-    through K2: NaN from there on in that factor and its NLML, the other
-    matrices as the plain version has them, and the launch returns."""
-    from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain, tri_inv
+    through K2: NaN from there on in that factor, its inverse (K3b) and its
+    NLML; the other matrices' factors and inverses as the plain versions
+    have them, and the launches return."""
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain, tri_inv, tri_inv_plain
 
     A = se_gram(torch, 3, 512, torch.Generator().manual_seed(6), device)
     A[1, 150, 150] = -1.0
     y = torch.ones((512, 1), device=device)
     L, Wd = chol_inv(A)
-    v = nll_of(torch, L, tri_inv(L, Wd), y)
+    W = tri_inv(L, Wd)
+    v = nll_of(torch, L, W, y)
     L2, _ = chol_inv(A[1])
     torch.cuda.synchronize()
-    Lp, _ = chol_inv_plain(A[[0, 2]])
+    Lp, Wdp = chol_inv_plain(A[[0, 2]])
     rel = ((L[[0, 2]] - Lp).norm(dim=(1, 2)) / Lp.norm(dim=(1, 2))).max().item()
+    Wp = tri_inv_plain(L[[0, 2]], Wd[[0, 2]])
+    rel_w = ((W[[0, 2]] - Wp).norm(dim=(1, 2)) / Wp.norm(dim=(1, 2))).max().item()
     ok = (bool(torch.isnan(L[1, 150:, 150]).all()) and bool(torch.isnan(v[1]))
+          and bool(torch.isnan(W[1, 150:, 150]).all())
           and bool(torch.isfinite(L[1, :128]).all()) and bool(torch.isfinite(v[[0, 2]]).all())
-          and bool(torch.isnan(L2[150:, 150]).all()) and rel <= 1e-4)
-    check(ok, f"negative pivot: NaN in that factor and its NLML (K3a and K2), the others "
-              f"finite and within {rel:.2e} of plain")
+          and bool(torch.isfinite(W[[0, 2]]).all())
+          and bool(torch.isnan(L2[150:, 150]).all()) and rel <= 1e-4 and rel_w <= 1e-4)
+    check(ok, f"negative pivot: NaN in that factor, its inverse and its NLML (K3a, K3b and "
+              f"K2), the others finite and within {rel:.2e} (L), {rel_w:.2e} (W) of plain")
 
 
 def plain_stage_nll(torch, gp, params, x, y, dtype):
@@ -386,6 +454,7 @@ def main_path(torch, device, iters, report):
     torch.cuda.synchronize()
     counts = cuda.launch_counts()
     report["main_counts"] = counts
+    report["stage_seconds"] = clock.seconds
 
     mean_np = mean.cpu().numpy()
     rmse = float(np.sqrt(np.mean((mean_np - y_test) ** 2)))
@@ -436,6 +505,7 @@ def main_path(torch, device, iters, report):
 
 
 def unbatched_paths(torch, device):
+    """20-step SE and ARD CIGP fits at n = 2048; returns ms/step of each."""
     from fidelityfusion_tpu_torch.demo import _toy_3fid
     from fidelityfusion_tpu_torch.models.cigp import CIGP
     from fidelityfusion_tpu_torch.ops import cuda
@@ -445,6 +515,7 @@ def unbatched_paths(torch, device):
     xs, ys, _, _ = _toy_3fid(seed=2, sizes=(2048, 1, 1), pool=4096)
     x = torch.as_tensor(((xs[0] - xs[0].mean()) / xs[0].std()).astype("float32"), device=device)
     y = torch.as_tensor(((ys[0] - ys[0].mean()) / ys[0].std()).astype("float32"), device=device)
+    ms_per_step = {}
     for name, kernel in (("se_nlml (SE)", SquaredExponentialKernel()),
                          ("mvn_nll_hybrid (ARD)", ARDKernel())):
         gp = CIGP(kernel=kernel)
@@ -457,10 +528,12 @@ def unbatched_paths(torch, device):
         sec = time.perf_counter() - t
         losses = res.losses.cpu()
         k2 = cuda.launch_counts().get("chol", 0) - before
+        ms_per_step[name] = sec / 20 * 1e3
         print(f"unbatched {name} n=2048: NLML {losses[0]:.4f} -> {losses[-1]:.4f}, "
               f"{sec / 20 * 1e3:.2f} ms/step, K2 launches {k2}", flush=True)
         check(bool(torch.isfinite(losses).all()) and losses[-1] < losses[0] and k2 >= 20,
               f"unbatched {name}: finite, decreasing, through K2")
+    return ms_per_step
 
 
 def main(argv=None) -> int:
@@ -516,7 +589,8 @@ def main(argv=None) -> int:
         kernels.append({f: k.get(f) for f in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape") + tuple(
-            f for f in ("leaf_us", "device_ops_per_call", "shapes") if f in k)})
+            f for f in ("timing", "call_ms", "cross_ms", "cross_bound_ms", "leaf_us",
+                        "device_ops_per_call", "shapes") if f in k)})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

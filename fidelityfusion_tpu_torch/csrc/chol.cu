@@ -60,17 +60,9 @@ struct Smem {
 // (not inlined, to keep the code small) address it as shared.
 __shared__ __align__(16) Smem sm;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using ff::cp_async16;
+using ff::cp_async_commit;
+using ff::cp_async_wait;
 
 // S[0:64, h*32 : h*32+32] <- G (row-major, leading dimension ld), asynchronously.
 __device__ __forceinline__ void load_half(float (*S)[LD], const float* G, size_t ld, int h) {
@@ -424,8 +416,7 @@ __global__ void __launch_bounds__(THREADS) chol_leaf_kernel(const float* D, floa
 extern "C" int ff_chol_inv(const float* A, float* L, float* Wd, int B, int n, void* stream) {
   if (B <= 0 || n <= 0) return 0;
   int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = ff::device_sms(&dev, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nb = n / P;
   const long long work = B * (nb * (nb - 1) / 2 > 1 ? nb * (nb - 1) / 2 : 1);

@@ -16,47 +16,36 @@ extern "C" const char* ff_error_string(int code) {
 
 namespace ff {
 
-// Panel width of the blocked factorization and tile width of the SIMT GEMMs.
-constexpr int TB = 64;
-constexpr int TPAD = TB + 1;  // padded shared-memory row: no bank conflicts
-constexpr int NTHREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int MAX_DEVICES = 64;
 
-// S = G[0:64, 0:64] (row-major global tile with leading dimension ld).
-__device__ __forceinline__ void load_tile(float (*S)[TPAD], const float* G,
-                                          size_t ld) {
-  for (int e = threadIdx.x; e < TB * TB; e += NTHREADS) {
-    int r = e / TB, c = e % TB;
-    S[r][c] = G[r * ld + c];
+// The current device (*dev) and its SM count (*sms), the count queried once
+// per device and process, so that a launch costs no attribute query.
+inline cudaError_t device_sms(int* dev, int* sms) {
+  static int known[MAX_DEVICES];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < MAX_DEVICES && known[*dev] > 0) {
+    *sms = known[*dev];
+    return cudaSuccess;
   }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+  if (err == cudaSuccess && *dev < MAX_DEVICES) known[*dev] = *sms;
+  return err;
 }
 
-// S = G[0:64, 0:64]^T.
-__device__ __forceinline__ void load_tile_t(float (*S)[TPAD], const float* G,
-                                            size_t ld) {
-  for (int e = threadIdx.x; e < TB * TB; e += NTHREADS) {
-    int r = e / TB, c = e % TB;
-    S[c][r] = G[r * ld + c];
-  }
+// 16 bytes global -> shared, asynchronously, cached in L2 only: the operands
+// of the cooperative kernels may have been written earlier in the same
+// launch by another CTA, so they must not come through L1.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
-
-// acc[i][j] += sum_k A[ty + 16 i][k] * B[k][tx + 16 j] over one 64-deep tile,
-// with tx = threadIdx.x % 16 and ty = threadIdx.x / 16.
-__device__ __forceinline__ void tile_fma(const float (*A)[TPAD],
-                                         const float (*B)[TPAD],
-                                         float acc[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 8
-  for (int k = 0; k < TB; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[ty + 16 * i][k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[k][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace ff

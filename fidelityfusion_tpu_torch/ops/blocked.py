@@ -4,7 +4,8 @@ Port of `fidelityfusion_tpu/ops/blocked.py`.  The JAX module shapes its
 factorization so that `vmap` turns every O(n^3) term into a batched GEMM;
 here the same factorization is a hand-written kernel pair with an explicit
 batch dimension (`ops/chol.py`: K2/K3a factor with fused leaf inverses,
-K3b assembles inv(L)), and everything in this module composes it:
+K3b assembles inv(L) by `_tri_inv_assemble`'s recursion), and everything
+in this module composes it:
 
   * `blocked_chol_inv_v2` / `blocked_chol_inv` - (L, W) of a block-multiple
     SPD matrix (or batch);
@@ -22,11 +23,12 @@ rank-1 leaf.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
 import torch
 
-from fidelityfusion_tpu_torch.ops.chol import PANEL, _leaf_chol_inv, chol_inv, tri_inv
+from fidelityfusion_tpu_torch.ops.chol import (
+    PANEL, _leaf_chol_inv, _tri_inv_assemble, chol_inv, tri_inv)
 from fidelityfusion_tpu_torch.ops.linalg import LOG2PI, mvn_nll_fused
 
 __all__ = [
@@ -34,22 +36,6 @@ __all__ = [
     "blocked_chol_inv_v2", "chol_inv_padded", "tri_inv_gemm",
     "mvn_nll_hybrid", "mvn_nll_blocked", "auto_block", "hybrid_block",
 ]
-
-
-def _tri_inv_assemble(L: torch.Tensor, diag_invs: List[torch.Tensor],
-                      block: int) -> torch.Tensor:
-    """inv(L) from its per-block diagonal inverses by divide and conquer:
-    inv([[A, 0], [B, C]]) = [[iA, 0], [-iC B iA, iC]] (plain GEMMs)."""
-    nb = len(diag_invs)
-    if nb == 1:
-        return diag_invs[0]
-    hb = nb // 2
-    h = hb * block
-    W1 = _tri_inv_assemble(L[..., :h, :h], diag_invs[:hb], block)
-    W2 = _tri_inv_assemble(L[..., h:, h:], diag_invs[hb:], block)
-    W21 = -(W2 @ (L[..., h:, :h] @ W1))
-    z = L.new_zeros(L.shape[:-2] + (h, L.shape[-1] - h))
-    return torch.cat([torch.cat([W1, z], -1), torch.cat([W21, W2], -1)], -2)
 
 
 def _check_block(n: int, block: int) -> None:
@@ -69,20 +55,13 @@ def blocked_chol_inv_v2(A: torch.Tensor, block: int = 128) -> Tuple[torch.Tensor
 
 def blocked_chol_inv(A: torch.Tensor, block: int = 64,
                      leaf: str = "fused") -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, W) as `blocked_chol_inv_v2`.  ``leaf="hybrid"`` assembles W by
-    divide and conquer from the diagonal-block inverses
-    (`_tri_inv_assemble`) instead of K3b's row-block recurrence; the
-    other JAX leaf names ("fused", "xla", "v2", "v2f") differ there only in
-    which XLA primitive factors the diagonal blocks and map to the one
-    kernel factorization here."""
+    """(L, W) as `blocked_chol_inv_v2`.  The JAX leaf names differ there
+    in which XLA primitive factors the diagonal blocks ("fused", "xla",
+    "v2", "v2f") or in assembling W by `_tri_inv_assemble` ("hybrid"),
+    which is K3b's recursion; all map to the one kernel pair here."""
     if leaf not in ("fused", "xla", "hybrid", "v2", "v2f"):
         raise ValueError(f"unknown leaf {leaf!r}")
-    if leaf != "hybrid":
-        return blocked_chol_inv_v2(A, block=block)
-    _check_block(A.shape[-1], block)
-    L, Wd = chol_inv(A)
-    W = _tri_inv_assemble(L, list(Wd.unbind(-3)), PANEL)
-    return L, W
+    return blocked_chol_inv_v2(A, block=block)
 
 
 def _pad_identity(A: torch.Tensor, n_pad: int) -> torch.Tensor:

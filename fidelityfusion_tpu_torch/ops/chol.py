@@ -18,7 +18,7 @@ closed-form backward passes (`ops/linalg.py`, `ops/fused_se.py`).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -31,7 +31,7 @@ _CHOL = cuda.Library("chol.cu", {
     "ff_chol_inv": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR],
     "ff_chol_leaf": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR],
 })
-_TRI = cuda.Library("tri_inv.cu", {"ff_tri_inv": [cuda.PTR] * 3 + [cuda.INT] * 2 + [cuda.PTR]})
+_TRI = cuda.Library("tri_inv.cu", {"ff_tri_inv": [cuda.PTR] * 4 + [cuda.INT] * 2 + [cuda.PTR]})
 CHOL_LAUNCHES = cuda.counter("chol")              # K2: one matrix
 CHOL_BATCHED_LAUNCHES = cuda.counter("chol_batched")  # K3a: a batch
 CHOL_LEAF_LAUNCHES = cuda.counter("chol_leaf")    # the K2/K3a leaf alone (checks, timing)
@@ -101,17 +101,29 @@ def chol_inv_plain(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.tril(work), Wd
 
 
+def _tri_inv_assemble(L: torch.Tensor, diag_invs: List[torch.Tensor],
+                      block: int) -> torch.Tensor:
+    """inv(L) from its per-block diagonal inverses by divide and conquer
+    (`fidelityfusion_tpu/ops/blocked.py:_tri_inv_assemble`, hb = nb // 2):
+    inv([[A, 0], [B, C]]) = [[iA, 0], [-iC (B iA), iC]] (plain GEMMs)."""
+    nb = len(diag_invs)
+    if nb == 1:
+        return diag_invs[0].clone()
+    hb = nb // 2
+    h = hb * block
+    W1 = _tri_inv_assemble(L[..., :h, :h], diag_invs[:hb], block)
+    W2 = _tri_inv_assemble(L[..., h:, h:], diag_invs[hb:], block)
+    W21 = -(W2 @ (L[..., h:, :h] @ W1))
+    z = L.new_zeros(L.shape[:-2] + (h, L.shape[-1] - h))
+    return torch.cat([torch.cat([W1, z], -1), torch.cat([W21, W2], -1)], -2)
+
+
 def tri_inv_plain(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
-    """Plain version of K3b on (B, n, n): the row-block recurrence
-    W[k,k] = W_kk, W[k,:k] = -W_kk (L[k,:k] W[:k,:k])."""
-    B, n, _ = L.shape
-    W = torch.zeros_like(L)
-    for k in range(n // PANEL):
-        s, e = k * PANEL, (k + 1) * PANEL
-        W[:, s:e, s:e] = Wd[:, k]
-        if k:
-            W[:, s:e, :s] = -(Wd[:, k] @ (L[:, s:e, :s] @ W[:, :s, :s]))
-    return W
+    """Plain version of K3b on (B, n, n): `_tri_inv_assemble` from the
+    64x64 blocks of Wd, each node T = L21 W11, then W21 = -W22 T.  (The
+    kernel runs the nodes level by level, deepest first, each phase over
+    the whole grid: a schedule, the same arithmetic.)"""
+    return _tri_inv_assemble(L, list(Wd.unbind(1)), PANEL)
 
 
 def _check_square(name, A):
@@ -160,7 +172,8 @@ def chol_leaf(D: torch.Tensor, reps: int = 1) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def tri_inv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
-    """W = inv(L) from L and its diagonal-block inverses (K3b)."""
+    """W = inv(L) from L and its diagonal-block inverses (K3b: one
+    cooperative launch)."""
     _check_square("tri_inv", L)
     n = L.shape[-1]
     L3 = L.reshape((-1, n, n))
@@ -171,9 +184,10 @@ def tri_inv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
         return tri_inv_plain(L3, Wd4).reshape(L.shape)
     L3, Wd4 = L3.contiguous(), Wd4.contiguous()
     cuda.require_cuda_f32("tri_inv", L3, Wd4)
-    W = torch.empty_like(L3)
+    W = torch.empty_like(L3)  # the kernel writes every element of W
     if L3.shape[0] and n:
-        _TRI.call("ff_tri_inv", L3.data_ptr(), Wd4.data_ptr(), W.data_ptr(),
+        T = torch.empty_like(L3)  # scratch for the products L21 W11
+        _TRI.call("ff_tri_inv", L3.data_ptr(), Wd4.data_ptr(), W.data_ptr(), T.data_ptr(),
                   L3.shape[0], n, cuda.stream_ptr(L3.device))
         TRI_INV_LAUNCHES.launches += 1
     return W.reshape(L.shape)

@@ -4,9 +4,9 @@ Route: each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a
 shared library with a plain C interface and loaded with `ctypes` (no
 PyTorch headers, so a build takes seconds).  Libraries are built at first
 use into `build/torch_kernels/` at the root of the checkout, named by a
-hash of their source (and of `csrc/common.cuh`), so an edited source is
-rebuilt and an unchanged one is reused.  Nothing is built or loaded when
-this module is imported.
+hash of their source and of every header in `csrc/`, so an edited source
+or header is rebuilt and an unchanged one is reused.  Nothing is built or
+loaded when this module is imported.
 
 Every C entry point returns a `cudaError_t` (0 on success);
 `Library.call` turns a non-zero code into an exception.  Each kernel wrapper owns a
@@ -32,7 +32,6 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-_HEADER = CSRC / "common.cuh"
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -58,7 +57,9 @@ class Library:
         self._handle: Optional[ctypes.CDLL] = None
 
     def so_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes() + _HEADER.read_bytes())
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def build_command(self, out: Path, verbose: bool = False) -> List[str]:

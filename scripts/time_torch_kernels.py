@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Runs `chip_smoke.py`'s kernel phase, or its training steps, on the port in a given tree, on one GPU.
+
+    python3 scripts/time_torch_kernels.py [--root DIR] [--steps]
+
+Imports `fidelityfusion_tpu_torch` from DIR (default: this checkout), and
+the driver code from this checkout's `chip_smoke.py`, so the same code runs
+on a parent commit unpacked beside the change: run parent, change, change,
+parent in one call to compare the two on one card.  Prints the card's name
+and power limit, then:
+
+- by default, chip_smoke's phase 2 (`kernel_checks`): every kernel against
+  its plain version, timed beside its bound, plain version and library
+  call (K1 and K3b by device time from CUDA graphs), K3b at R=4,
+  n=256/512/1024 and R=1, n=2048; the last line is a JSON object of the
+  kernels' ms;
+- with ``--steps``, whole training steps, with no CUDA graph and no
+  profiler in the process: the unbatched n = 2048 SE and ARD fits once to
+  warm up, chip_smoke's main path (`train_AR`, 200 Adam steps a stage),
+  and the unbatched fits again; the last line is a JSON object of ms per
+  step.
+
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def kernel_times(torch, smoke, device, root) -> int:
+    report = {}
+    smoke.kernel_checks(torch, device, report)
+    print(json.dumps({"root": str(root), "ms": {
+        key: {row["shape"]: row["ms"] for row in report[key].get("shapes", [report[key]])}
+        for key in report}, "failures": len(smoke.FAILURES)}), flush=True)
+    return 1 if smoke.FAILURES else 0
+
+
+def step_times(torch, smoke, device, root) -> int:
+    smoke.unbatched_paths(torch, device)  # warm-up: the kernels, cuBLAS, the allocator
+    report = {}
+    smoke.main_path(torch, device, 200, report)
+    unbatched = smoke.unbatched_paths(torch, device)
+    print(json.dumps({
+        "root": str(root),
+        "stage_ms_per_step": [s / 200 * 1e3 for s in report["stage_seconds"]],
+        "unbatched_ms_per_step": unbatched, "failures": len(smoke.FAILURES)}), flush=True)
+    return 1 if smoke.FAILURES else 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", type=Path, default=HERE,
+                        help="checkout whose fidelityfusion_tpu_torch is run")
+    parser.add_argument("--steps", action="store_true",
+                        help="time training steps instead of the kernels")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_torch_kernels: needs a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.root.resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+
+    from fidelityfusion_tpu_torch.ops import chol, cuda, gram
+
+    cuda.build([gram._LIB, chol._CHOL, chol._TRI])
+    print(f"root {args.root}  {smoke.smi_line()}", flush=True)
+    run = step_times if args.steps else kernel_times
+    return run(torch, smoke, device, args.root)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

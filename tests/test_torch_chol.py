@@ -1,7 +1,9 @@
-"""K2/K3a's plain version as the kernel computes it: the recursive 64 -> 32
-leaf (`_leaf_chol_inv_rec`) against the flat rank-1 leaf and the JAX
-leaf, and `chol_inv_plain` against the JAX blocked factorizations, in
-float64 where exactness is the question and in float32 at the bars of
+"""K2/K3a's and K3b's plain versions as the kernels compute them: the
+recursive 64 -> 32 leaf (`_leaf_chol_inv_rec`) against the flat rank-1
+leaf and the JAX leaf, `chol_inv_plain` against the JAX blocked
+factorizations, and the halving `tri_inv_plain` against the row
+recurrence, `_tri_inv_assemble` and the retired Pallas inverse, in float64
+where exactness is the question and in float32 at the bars of
 tests/test_torch_blocked.py."""
 
 import jax
@@ -10,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from benchmarks.retired.pallas_batched import _tri_inv_recursive, tri_inv_vmem
 from fidelityfusion_tpu.ops import blocked as JB
 from fidelityfusion_tpu_torch.ops.chol import (
-    PANEL, _leaf_chol_inv, _leaf_chol_inv_rec, chol_inv, chol_inv_plain, chol_leaf)
+    PANEL, _leaf_chol_inv, _leaf_chol_inv_rec, chol_inv, chol_inv_plain, chol_leaf, tri_inv,
+    tri_inv_plain)
 
 
 def _spd(rng, n, R):
@@ -98,3 +102,70 @@ def test_chol_inv_plain_batch_matches_jax_v2_and_isolates_nan():
     assert torch.isfinite(L[1, :128]).all() and torch.isfinite(L[[0, 2]]).all()
     np.testing.assert_allclose(L[[0, 2]].numpy(), wL[[0, 2]], rtol=1e-4,
                                atol=1e-4 * np.abs(wL).max())
+
+
+def _tri_inv_rows(L, Wd):
+    """The row-block recurrence K3b computed before its level-by-level form:
+    W[k,k] = W_kk, W[k,:k] = -W_kk (L[k,:k] W[:k,:k])."""
+    W = torch.zeros_like(L)
+    for k in range(L.shape[-1] // PANEL):
+        s, e = k * PANEL, (k + 1) * PANEL
+        W[:, s:e, s:e] = Wd[:, k]
+        W[:, s:e, :s] = -(Wd[:, k] @ (L[:, s:e, :s] @ W[:, :s, :s]))
+    return W
+
+
+def _factor(n, R, dtype):
+    """(L, Wd) of R random SPD matrices of size n by the plain K2/K3a."""
+    return chol_inv_plain(torch.tensor(_spd(np.random.default_rng(n + R), n, R)).to(dtype))
+
+
+TRI_SHAPES = [(nb, R) for nb in (3, 5, 6, 8) for R in (1, 3)]
+
+
+@pytest.mark.parametrize("nb,R", TRI_SHAPES)
+def test_tri_inv_plain_matches_rows_and_assemble_f64(nb, R):
+    """nb = 3, 5, 6, 8 blocks (unequal halves at some level for all but 8):
+    equal to the row recurrence and to the JAX `_tri_inv_assemble` to
+    1e-12 relative, Wd on the diagonal and zeros above it exactly."""
+    n = nb * PANEL
+    L, Wd = _factor(n, R, torch.float64)
+    W = tri_inv_plain(L, Wd)
+    assert _rel(W.numpy(), _tri_inv_rows(L, Wd).numpy()) <= 1e-12
+    with jax.enable_x64(True):
+        want = np.stack([np.asarray(JB._tri_inv_assemble(
+            jnp.asarray(L[r].numpy()), [jnp.asarray(w) for w in Wd[r].numpy()], PANEL,
+            precision="highest")) for r in range(R)])
+    assert _rel(W.numpy(), want) <= 1e-12
+    assert (torch.triu(W, 1) == 0).all()
+    for k in range(nb):
+        blk = slice(k * PANEL, (k + 1) * PANEL)
+        assert torch.equal(W[:, blk, blk], Wd[:, k])
+
+
+@pytest.mark.parametrize("nb,R", TRI_SHAPES)
+def test_tri_inv_plain_matches_jax_and_pallas_f32(nb, R):
+    """float32 against the JAX `_tri_inv_recursive` and the retired
+    `tri_inv_vmem` in interpret mode, at the bars of
+    tests/test_torch_blocked.py:test_chol_and_tri_inv_plain_match_pallas_batched;
+    the CPU wrapper runs the plain version."""
+    n = nb * PANEL
+    L, Wd = _factor(n, R, torch.float32)
+    W = tri_inv(L, Wd)
+    np.testing.assert_array_equal(W.numpy(), tri_inv_plain(L, Wd).numpy())
+    jL = jnp.asarray(L.numpy())
+    for want in (np.asarray(jax.jit(jax.vmap(_tri_inv_recursive))(jL)),
+                 np.asarray(jax.vmap(lambda a: tri_inv_vmem(a, block=PANEL, interpret=True))(jL))):
+        np.testing.assert_allclose(W.numpy(), want, rtol=1e-3, atol=1e-4 * np.abs(want).max())
+
+
+def test_tri_inv_plain_isolates_nan():
+    """A NaN in matrix 1's L and one in matrix 2's Wd: NaN in those W only,
+    the others as computed alone."""
+    L, Wd = _factor(384, 4, torch.float32)
+    L[1, 200, 70] = float("nan")
+    Wd[2, 1, 5, 3] = float("nan")
+    W = tri_inv_plain(L, Wd)
+    assert torch.isnan(W[1]).any() and torch.isnan(W[2]).any()
+    assert torch.isfinite(W[[0, 3]]).all()
+    np.testing.assert_array_equal(W[[0, 3]].numpy(), tri_inv_plain(L[[0, 3]], Wd[[0, 3]]).numpy())

@@ -29,8 +29,13 @@ def _spd(dev, R, n):
     return gram_plain(x, x, inv_ls, torch.ones(R, device=dev), torch.full((R,), 1e-2, device=dev))
 
 
-@pytest.mark.parametrize("n1,n2,d", [(256, 256, 1), (100, 37, 3), (64, 200, 40)])
+@pytest.mark.parametrize("n1,n2,d", [(256, 256, 1), (100, 37, 3), (64, 200, 40), (256, 256, 2),
+                                     (96, 96, 3), (1024, 1000, 1), (130, 1001, 1), (37, 300, 2),
+                                     (200, 200, 8), (96, 96, 9), (64, 64, 40)])
 def test_gram_kernel_matches_plain(dev, n1, n2, d):
+    """d = 1 takes the register path, every other d the chunked one; ragged
+    n1 and n2, n2 not a multiple of 4 (scalar stores), nugget and y_var
+    on square Grams."""
     from fidelityfusion_tpu_torch.ops.gram import gram, gram_plain
 
     g = torch.Generator().manual_seed(0)
@@ -42,6 +47,20 @@ def test_gram_kernel_matches_plain(dev, n1, n2, d):
     got = gram(x1, x2, inv_ls, sv, diag_add=da, y_var=yv)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, gram_plain(x1, x2, inv_ls, sv, da, yv), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 3, 40])
+def test_gram_kernel_diagonal_is_exact(dev, d):
+    """x1 is x2: the diagonal is sv + diag_add exactly, in every tile."""
+    from fidelityfusion_tpu_torch.ops.gram import gram
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((300, d), generator=g).to(dev)
+    inv_ls = (torch.rand((2, d), generator=g) + 0.5).to(dev)
+    sv, da = torch.tensor([0.7, 1.3], device=dev), torch.tensor([1e-2, 3e-4], device=dev)
+    got = gram(x, x, inv_ls, sv, diag_add=da)
+    torch.cuda.synchronize()
+    assert (got.diagonal(dim1=1, dim2=2) == (sv + da)[:, None]).all()
 
 
 @pytest.mark.parametrize("R,n", [(1, 64), (1, 512), (4, 256), (3, 192), (1, 2048), (4, 1024),
@@ -100,3 +119,47 @@ def test_chol_kernel_back_to_back_calls_are_bit_identical(dev):
     outs = [chol_inv(A) for _ in range(50)]
     torch.cuda.synchronize()
     assert all(torch.equal(L, L0) and torch.equal(Wd, Wd0) for L, Wd in outs)
+
+
+def _factor(dev, R, n):
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv
+
+    return chol_inv(_spd(dev, R, n))
+
+
+@pytest.mark.parametrize("R,n", [(2, 64), (1, 128), (3, 192), (2, 320), (3, 384), (1, 1344)])
+def test_tri_inv_kernel_odd_block_counts(dev, R, n):
+    """nb = 1, 2, 3, 5, 6 and 21 blocks: halves of unequal size at some level."""
+    from fidelityfusion_tpu_torch.ops.chol import tri_inv, tri_inv_plain
+
+    L, Wd = _factor(dev, R, n)
+    W = tri_inv(L, Wd)
+    torch.cuda.synchronize()
+    assert (W @ L - torch.eye(n, device=dev)).abs().max().item() <= 1e-3
+    torch.testing.assert_close(W, tri_inv_plain(L, Wd), rtol=1e-3, atol=1e-3)
+    assert (torch.triu(W, 1) == 0).all()
+
+
+def test_tri_inv_kernel_isolates_nan(dev):
+    """A NaN in matrix 1's L and one in matrix 2's Wd stay in their own W."""
+    from fidelityfusion_tpu_torch.ops.chol import tri_inv, tri_inv_plain
+
+    L, Wd = _factor(dev, 4, 384)
+    L[1, 200, 70] = float("nan")
+    Wd[2, 1, 5, 3] = float("nan")
+    W = tri_inv(L, Wd)
+    torch.cuda.synchronize()
+    assert torch.isnan(W[1]).any() and torch.isnan(W[2]).any()
+    assert torch.isfinite(W[[0, 3]]).all()
+    torch.testing.assert_close(W[[0, 3]], tri_inv_plain(L[[0, 3]], Wd[[0, 3]]), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_tri_inv_kernel_back_to_back_calls_are_bit_identical(dev):
+    from fidelityfusion_tpu_torch.ops.chol import tri_inv
+
+    L, Wd = _factor(dev, 4, 1024)
+    W0 = tri_inv(L, Wd)
+    outs = [tri_inv(L, Wd) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(W, W0) for W in outs)

@@ -11,7 +11,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "fidelityfusion_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_ar.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_ar.py",
+    ROOT / "scripts" / "time_torch_kernels.py"]
 
 
 def _imported_roots(path):
