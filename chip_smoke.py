@@ -13,18 +13,26 @@ prints no result line):
    call that computes the same function, and the bound from shapes (K1
    and K3b by device time, from a CUDA graph of their calls; K2/K3a by
    CUDA events over back-to-back calls, each longer than its enqueue);
-   K3b at every K3a shape and at n = 2048; for K2/K3a also time the leaf
-   alone; factor ill-conditioned SE Grams (relative nugget 1e-6) through
-   K2/K3a and K3b against the plain versions in float32 and float64, and
-   a batch with a negative pivot, whose factor, inverse and NLML must
-   come out NaN while the other matrices' do not;
+   K1 also at NAR's d = 2 (its stages i >= 1 train on [x, y_low]); K2 also
+   at CAR-large's n = 1792; K3b at every K3a shape and at n = 1792 and
+   2048; for K2/K3a also time the leaf alone; factor ill-conditioned SE
+   Grams (relative nugget 1e-6) through K2/K3a and K3b against the plain
+   versions in float32 and float64, and a batch with a negative pivot,
+   whose factor, inverse and NLML must come out NaN while the other
+   matrices' do not;
 3. the main path: `train_AR` of a 3-fidelity AR cascade over SE CIGPs
    with 4 restarts on nested (1024, 512, 256)-row subsets of the toy sin,
    then `forward` and `export_posterior` on 1000 test points; every
    kernel must have launched in this phase;
-4. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
+4. the other cascades on the same data, each driven with the launch
+   counts set to 0 just before it and read just after: ResGP and NAR
+   (SE, then `forward` and `export_posterior`) and staged CAR (ARD) as
+   the main path, CAR-large (a 60-step joint fit over all 1792 rows) and
+   FIDES (a 60-step fit to 1024 top-fidelity rows); each stage's NLML is
+   held against the plain versions in float32 and float64;
+5. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
    an ARD fit (`mvn_nll_hybrid`);
-5. the device kernels of one K2/K3a call and one K3b call, under
+6. the device kernels of one K2/K3a call and one K3b call, under
    `torch.profiler` (last: tracing slows every launch after it).
 
 The second-to-last line is `{"kernels": [...]}`, the last
@@ -44,6 +52,7 @@ PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 without tensor cores (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (data sheet)
 NOISE = 1e-2              # SE Grams of the kernel checks: noise 1e-2
 SIZES = (1024, 512, 256)  # main path: rows of the three fidelities
+FIT_STEPS = 60            # CAR-large's and FIDES's unbatched fits
 FAILURES = []
 
 
@@ -161,6 +170,47 @@ def se_problem(torch, R, n, d, gen, device):
     return x, inv_ls, sv, torch.full((R,), NOISE, device=device)
 
 
+def gram_d2_checks(torch, device, gen, library_gram):
+    """K1 at NAR's stages i >= 1 ([x, y_low], d = 2): the training Grams at
+    (4, 512) and (4, 256) with nugget and y_var, the 512 x 1000 cross-Gram
+    of predict, against the plain version; (4, 512) timed by device time
+    beside its bound, plain version and `cdist`."""
+    from fidelityfusion_tpu_torch.ops import gram as G
+
+    errs = []
+    for n in (512, 256):
+        x, inv_ls, sv, da = se_problem(torch, 4, n, 2, gen, device)
+        yv = (0.01 * torch.rand((4, n), generator=gen)).to(device)
+        got, want = G.gram(x, x, inv_ls, sv, diag_add=da, y_var=yv), G.gram_plain(
+            x, x, inv_ls, sv, da, yv)
+        err = (got - want).abs()
+        errs.append(err.max().item())
+        check(bool((err <= 1e-5 + 1e-4 * want.abs()).all())
+              and bool((got.diagonal(dim1=1, dim2=2) == (sv + da)[:, None] + yv).all()),
+              f"K1 gram R=4 n={n} d=2 (y_var): max abs err {err.max().item():.3e} "
+              f"(rtol 1e-4, atol 1e-5), diagonal exact")
+        if n == 512:
+            timed_args = (x, inv_ls, sv, da, yv)
+    x, inv_ls, sv, da, yv = timed_args
+    xt = torch.randn((1000, 2), generator=gen).to(device)
+    got_c, want_c = G.gram(x, xt, inv_ls, sv), G.gram_plain(x, xt, inv_ls, sv)
+    err_c = (got_c - want_c).abs()
+    check(bool((err_c <= 1e-5 + 1e-4 * want_c.abs()).all()),
+          f"K1 cross-gram 512x1000 d=2: max abs err {err_c.max().item():.3e}")
+    R, n, d = 4, 512, 2
+    ms = device_ms(torch, lambda: G.gram(x, x, inv_ls, sv, diag_add=da, y_var=yv))
+    plain_ms = device_ms(torch, lambda: G.gram_plain(x, x, inv_ls, sv, da, yv))
+    lib_ms = device_ms(torch, lambda: library_gram(x, x, inv_ls, sv, da)
+                       + torch.diag_embed(yv))
+    b_ms, b_by = bound(R * n * n * (3 * d + 3), 4 * (2 * n * d + R * (d + 2) + R * n + R * n * n))
+    print(f"K1 R={R} n={n} d={d}: kernel {ms * 1e3:.3f} us by device time  plain "
+          f"{plain_ms * 1e3:.3f} us  cdist {lib_ms * 1e3:.3f} us  bound {b_ms * 1e3:.3f} us "
+          f"({b_by})", flush=True)
+    return dict(shape=f"R={R} n={n} d={d}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, max_abs_err=max(errs),
+                cross_max_abs_err=err_c.max().item())
+
+
 def kernel_checks(torch, device, report):
     from fidelityfusion_tpu_torch.ops import gram as G
     from fidelityfusion_tpu_torch.ops.chol import (
@@ -184,10 +234,11 @@ def kernel_checks(torch, device, report):
     check(bool((got.diagonal(dim1=1, dim2=2) == (sv + da)[:, None]).all()),
           "K1 diag == sv + diag_add exactly")
 
-    def library_gram():
-        xs = x[None] * inv_ls[:, None, :]
-        K = sv[:, None, None] * torch.exp(-0.5 * torch.cdist(xs, xs) ** 2)
-        return K + da[:, None, None] * torch.eye(n, device=device)
+    def library_gram(x, x2, inv_ls, sv, da=None):
+        """The same Gram by `torch.cdist` (plus the nugget on a square one)."""
+        xs, x2s = x[None] * inv_ls[:, None, :], x2[None] * inv_ls[:, None, :]
+        K = sv[:, None, None] * torch.exp(-0.5 * torch.cdist(xs, x2s) ** 2)
+        return K if da is None else K + da[:, None, None] * torch.eye(len(x), device=device)
 
     # device time: a call's enqueue (autograd Function, checks, ctypes)
     # outlasts this kernel, so CUDA events over back-to-back calls would
@@ -195,8 +246,10 @@ def kernel_checks(torch, device, report):
     ms = device_ms(torch, lambda: G.gram(x, x, inv_ls, sv, diag_add=da))
     call_ms = timed(lambda: G.gram(x, x, inv_ls, sv, diag_add=da), torch)
     cross_ms = device_ms(torch, lambda: G.gram(x, xt, inv_ls, sv))
+    cross_plain_ms = device_ms(torch, lambda: G.gram_plain(x, xt, inv_ls, sv))
+    cross_lib_ms = device_ms(torch, lambda: library_gram(x, xt, inv_ls, sv))
     plain_ms = device_ms(torch, lambda: G.gram_plain(x, x, inv_ls, sv, da))
-    lib_ms = device_ms(torch, library_gram)
+    lib_ms = device_ms(torch, lambda: library_gram(x, x, inv_ls, sv, da))
     b_ms, b_by = bound(R * n * n * (3 * d + 3), 4 * (2 * n * d + R * (d + 2) + R * n * n))
     bc_ms, _ = bound(R * n * 1000 * (3 * d + 2), 4 * ((n + 1000) * d + 2 * R + R * n * 1000))
     report["gram"] = dict(
@@ -204,11 +257,14 @@ def kernel_checks(torch, device, report):
         replaces="benchmarks/retired/pallas_gram.py:85", max_abs_err=err.max().item(),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         shape=f"R={R} n={n} d={d}", timing="device time, CUDA graph of 20 calls",
-        call_ms=call_ms, cross_ms=cross_ms, cross_bound_ms=bc_ms)
+        call_ms=call_ms, cross_ms=cross_ms, cross_bound_ms=bc_ms, cross_plain_ms=cross_plain_ms,
+        cross_library_ms=cross_lib_ms, cross_max_abs_err=err_c.max().item())
     print(f"K1 R={R} n={n} d={d}: kernel {ms * 1e3:.3f} us by device time (CUDA graph of 20 "
           f"calls; {call_ms * 1e3:.3f} us a call by events over back-to-back calls)  plain "
           f"{plain_ms:.4f} ms  cdist {lib_ms:.4f} ms  bound {b_ms * 1e3:.3f} us ({b_by}); "
-          f"cross-Gram {n}x1000 {cross_ms * 1e3:.3f} us (bound {bc_ms * 1e3:.3f} us)", flush=True)
+          f"cross-Gram {n}x1000 {cross_ms * 1e3:.3f} us (bound {bc_ms * 1e3:.3f} us, plain "
+          f"{cross_plain_ms * 1e3:.3f} us, cdist {cross_lib_ms * 1e3:.3f} us)", flush=True)
+    report["gram"]["d2"] = gram_d2_checks(torch, device, gen, library_gram)
 
     def chol_case(key, R, n, batched):
         x, inv_ls, sv, da = se_problem(torch, R, n, 1, gen, device)
@@ -266,19 +322,20 @@ def kernel_checks(torch, device, report):
 
     # ---- K2 (one matrix) and K3a (a restart batch): checked and timed at
     # each shape, reported at the largest; K3b checked on every factor and
-    # timed at the K3a shapes and n = 2048, reported at (4, 1024)
+    # timed at the K3a shapes and n = 1792 and 2048, reported at (4, 1024)
     leaf = leaf_us(torch, device)
     print(f"K2/K3a leaf alone: {leaf:.3f} us", flush=True)
     tri_rows = {}
     for key, name, replaces, shapes in (
-            ("K2", "chol", "benchmarks/retired/pallas_cholesky.py:213", ((1, 1024), (1, 2048))),
+            ("K2", "chol", "benchmarks/retired/pallas_cholesky.py:213",
+             ((1, 1024), (1, 1792), (1, 2048))),
             ("K3a", "chol_batched", "benchmarks/retired/pallas_batched.py:175",
              ((4, 256), (4, 512), (4, 1024)))):
         rows = []
         for R, n in shapes:
             A, L, Wd, abs_err, w_err = chol_case(key, R, n, batched=key == "K3a")
             rows.append(dict(chol_timing(key, A, R, n), max_abs_err=abs_err))
-            if key == "K3a" or n == 2048:
+            if key == "K3a" or n >= 1792:
                 tri_rows[(R, n)] = tri_inv_timing(L, Wd, w_err, R, n)
         report[name] = dict(rows[-1], name=name, source="fidelityfusion_tpu_torch/csrc/chol.cu",
                             replaces=replaces, shapes=rows, leaf_us=leaf)
@@ -381,28 +438,76 @@ def nan_pivot_check(torch, device):
               f"K2), the others finite and within {rel:.2e} (L), {rel_w:.2e} (W) of plain")
 
 
-def plain_stage_nll(torch, gp, params, x, y, dtype):
-    """A stage's CIGP NLML (no mask, no y_var) through the plain versions
-    of K1, K2 and K3b only, in ``dtype``."""
-    from fidelityfusion_tpu_torch.ops.chol import PANEL, chol_inv_plain, tri_inv_plain
+def plain_sigma(torch, gp, params, x, y_var=None):
+    """A CIGP's or GPBasic's Sigma (no mask) through the plain version of
+    K1 only: an SE-form kernel's Gram with its nugget in one pass, as the
+    models build it; CAR-large's kernel as the plain base Gram times its
+    feature product, the nugget added after."""
     from fidelityfusion_tpu_torch.ops.gram import gram_plain
+    from fidelityfusion_tpu_torch.ops.linalg import assemble_sigma
+
+    kernel, kp = gp.kernel, params["kernel"]
+    if kernel.SE_FORM:
+        inv_ls, sv = kernel.gram_args(kp, x.shape[1])
+        jit = gp.jitter * sv if gp.relative_jitter else gp.jitter
+        return gram_plain(x, x, inv_ls.reshape(1, -1), sv.reshape(1),
+                          (gp.noise(params, sv) + jit).reshape(1),
+                          None if y_var is None else y_var.reshape(1, -1))[0]
+    f = kernel.features(kp, x[:, -1])
+    inv_ls, base_sv = kernel.base.gram_args(kp["base"], x.shape[1] - 1)
+    K = (kp["signal_variance"].abs()[0] * (f @ f.T) * gram_plain(
+        x[:, :-1], x[:, :-1], inv_ls.reshape(1, -1), base_sv.reshape(1))[0])
+    return assemble_sigma(K, gp.noise(params, K.diagonal().mean()), gp.jitter, y_var=y_var,
+                          relative_jitter=gp.relative_jitter)
+
+
+def plain_nll(torch, Sigma, y) -> float:
+    """NLML of y ~ N(0, Sigma) through the plain versions of K2 and K3b,
+    in Sigma's dtype (identity-padded to the panel, as the kernels are)."""
+    from fidelityfusion_tpu_torch.ops.chol import PANEL, chol_inv_plain, tri_inv_plain
     from fidelityfusion_tpu_torch.ops.linalg import LOG2PI
+
+    n = Sigma.shape[-1]
+    n_pad = -(-n // PANEL) * PANEL
+    Sp = torch.eye(n_pad, dtype=Sigma.dtype, device=Sigma.device)[None].clone()
+    Sp[:, :n, :n] = Sigma
+    L, Wd = chol_inv_plain(Sp)
+    W = tri_inv_plain(L, Wd)[0, :n, :n]
+    y = y.reshape(n, -1)
+    gamma = W @ y
+    return float(0.5 * (gamma * gamma).sum() + y.shape[1] * torch.log(
+        L[0].diagonal()[:n]).sum() + 0.5 * n * y.shape[1] * LOG2PI)
+
+
+def plain_stage_nll(torch, gp, params, x, y, dtype, y_var=None):
+    """A stage's NLML through the plain versions of K1, K2 and K3b only,
+    in ``dtype``."""
     from fidelityfusion_tpu_torch.utils.tree import tree_map
 
     params = tree_map(lambda a: a.to(dtype), params)
     x, y = x.to(dtype), y.to(dtype)
-    n = x.shape[0]
-    inv_ls, sv = gp.kernel.gram_args(params["kernel"], x.shape[1])
-    diag_add = gp.noise(params, sv) + gp.jitter
-    Sigma = gram_plain(x, x, inv_ls[None], sv.reshape(1), diag_add.reshape(1))
-    n_pad = -(-n // PANEL) * PANEL
-    Sp = torch.eye(n_pad, dtype=dtype, device=x.device)[None].clone()
-    Sp[:, :n, :n] = Sigma
-    L, Wd = chol_inv_plain(Sp)
-    W = tri_inv_plain(L, Wd)[0, :n, :n]
-    gamma = W @ y
-    return float(0.5 * (gamma * gamma).sum() + y.shape[1] * torch.log(
-        L[0].diagonal()[:n]).sum() + 0.5 * n * y.shape[1] * LOG2PI)
+    y_var = None if y_var is None else y_var.to(dtype)
+    return plain_nll(torch, plain_sigma(torch, gp, params, x, y_var), y)
+
+
+def check_stage_nll(torch, label, nll_card, v_plain, v_plain64, trained, rows):
+    """The NLML through the kernels (``nll_card``) and the training's final
+    score (``trained``, or None) against the plain versions' in float32,
+    within 1e-3 of max(|NLML|, rows)."""
+    # fp32 at the trained optimum: the nugget sits near its floor, so
+    # cond(Sigma) ~ 1e6-1e7 and two fp32 factorizations differ by ~1e-4
+    # of the NLML's O(rows) terms, whatever their order.  Scale:
+    # max(|NLML|, rows); the float64 plain value shows which is closer.
+    scale = max(abs(v_plain), float(rows))
+    rel = abs(nll_card - v_plain) / scale
+    rel_train = 0.0 if trained is None else abs(trained - v_plain) / scale
+    print(f"{label}: NLML kernels {nll_card:.6f}  training "
+          f"{'-' if trained is None else f'{trained:.6f}'}  plain fp32 {v_plain:.6f}  plain fp64 "
+          f"{v_plain64:.6f}  |kernels - fp64| {abs(nll_card - v_plain64):.3e}  |plain fp32 - "
+          f"fp64| {abs(v_plain - v_plain64):.3e}", flush=True)
+    check(rel <= 1e-3 and rel_train <= 1e-3,
+          f"{label} NLML kernels vs plain: rel {rel:.2e}, training vs plain {rel_train:.2e} "
+          f"(<= 1e-3 of max(|nll|, rows))")
 
 
 def main_path_setup(device):
@@ -423,17 +528,25 @@ def main_path_setup(device):
 
 
 class StageClock:
-    """`train_AR` debugger: host seconds of each stage, synchronized."""
+    """A cascade trainer's debugger: host seconds of each stage,
+    synchronized, and (given the model) a copy of its parameters as each
+    stage ends (staged CAR's global b moves on in later stages)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, model=None):
         self.torch = torch
+        self.model = model
         self.t = time.perf_counter()
         self.seconds = []
+        self.params = []
 
     def record_stage(self, i, hist):
         self.torch.cuda.synchronize()
         now = time.perf_counter()
         self.seconds.append(now - self.t)
+        if self.model is not None:
+            from fidelityfusion_tpu_torch.utils.tree import tree_map
+
+            self.params.append(tree_map(lambda a: a.clone(), self.model.params))
         self.t = now
 
 
@@ -474,23 +587,12 @@ def main_path(torch, device, iters, report):
             y_tr = y_tr[0]
         xt = torch.as_tensor(np.asarray(x_tr, np.float32), device=device)
         yt = torch.as_tensor(np.asarray(y_tr, np.float32), device=device)
-        v_plain = plain_stage_nll(torch, gp, p, xt, yt, torch.float32)
-        v_plain64 = plain_stage_nll(torch, gp, p, xt, yt, torch.float64)
         with torch.no_grad():
             v_card = float(gp.nll(p, xt, yt))
-        # fp32 at the trained optimum: the nugget sits near its floor, so
-        # cond(Sigma) ~ 1e6-1e7 and two fp32 factorizations differ by
-        # ~1e-4 of the NLML's O(rows) terms, whatever their order.  Scale:
-        # max(|NLML|, rows); the float64 plain value shows which is closer.
-        scale = max(abs(v_plain), float(xt.shape[0]))
-        rel, rel_train = abs(v_card - v_plain) / scale, abs(score[best] - v_plain) / scale
-        print(f"stage {i}: NLML kernels {v_card:.6f}  training {score[best]:.6f}  plain fp32 "
-              f"{v_plain:.6f}  plain fp64 {v_plain64:.6f}  |kernels - fp64| "
-              f"{abs(v_card - v_plain64):.3e}  |plain fp32 - fp64| {abs(v_plain - v_plain64):.3e}",
-              flush=True)
-        check(rel <= 1e-3 and rel_train <= 1e-3,
-              f"stage {i} NLML kernels vs plain: rel {rel:.2e}, training vs plain {rel_train:.2e} "
-              f"(<= 1e-3 of max(|nll|, rows))")
+        check_stage_nll(torch, f"stage {i}", v_card,
+                        plain_stage_nll(torch, gp, p, xt, yt, torch.float32),
+                        plain_stage_nll(torch, gp, p, xt, yt, torch.float64),
+                        float(score[best]), xt.shape[0])
     print(f"main path: test RMSE vs sin(x) {rmse:.5f}  wall {sum(clock.seconds):.3f} s "
           f"(train)  launches {counts}", flush=True)
     check(bool(np.isfinite(mean_np).all()) and mean_np.shape == (1000, 1)
@@ -502,6 +604,206 @@ def main_path(torch, device, iters, report):
           f"export_posterior matches forward: max |dmean| {dif:.2e}, |dvar| {vdif:.2e}")
     for name in ("gram", "chol", "chol_batched", "tri_inv"):
         check(counts.get(name, 0) > 0, f"main path launched {name} ({counts.get(name, 0)} times)")
+
+
+def _stage_data(torch, dm, name, i, device):
+    """(x, y, y_var) of stage i of a trained cascade, on the card."""
+    import numpy as np
+
+    if i == 0:
+        x, y = dm.get_data(0, normal=True)
+        y_var = None
+    else:
+        x, (y, y_var) = dm.get_data_by_name(f"{'concat' if name == 'NAR' else 'res'}-{i}")
+    t = lambda a: None if a is None else torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.float32), device=device)
+    return t(x), t(y), t(y_var)
+
+
+def cascade_launches(name, required, counts):
+    for key in required:
+        check(counts.get(key, 0) > 0, f"{name} launched {key} ({counts.get(key, 0)} times)")
+
+
+def staged_cascade(torch, device, name, iters, report):
+    """Train one staged cascade (ResGP, NAR or staged CAR) as the main path
+    trains AR, hold each stage's NLML against the plain versions, predict
+    the 1000 test points; returns the test RMSE."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.models import car, nar, resgp
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel, SquaredExponentialKernel
+    from fidelityfusion_tpu_torch.train.fit import restart_scores
+
+    _, dm, x_test, y_test = main_path_setup(device)
+    if name == "CAR":
+        model = car.ContinuousAutoRegression(3, [ARDKernel() for _ in range(3)], device=device)
+        train = car.train_CAR
+    else:
+        cls, train = {"ResGP": (resgp.ResGP, resgp.train_ResGP),
+                      "NAR": (nar.NAR, nar.train_NAR)}[name]
+        model = cls(3, [SquaredExponentialKernel() for _ in range(3)], device=device)
+    cuda.reset_launch_counts()
+    clock = StageClock(torch, model)
+    hists = train(model, dm, max_iter=iters, lr_init=5e-2, n_restarts=4, debugger=clock)
+    mean, cov = model.forward(dm, x_test)
+    if name != "CAR":
+        post, state = model.export_posterior(dm)
+        pm, pv = post(state, x_test)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    report["launches_by_path"][name] = counts
+    report["cascades"][name] = {"stage_seconds": clock.seconds,
+                                "ms_per_step": [t / iters * 1e3 for t in clock.seconds]}
+    for i, h in enumerate(hists):
+        score = restart_scores(h)
+        best = int(np.argmin(score))
+        print(f"{name} stage {i}: rows {SIZES[i]}  final NLML {score[best]:.6f}  chosen restart "
+              f"{best}  restart scores {np.round(score, 4).tolist()}  wall "
+              f"{clock.seconds[i]:.3f} s ({clock.seconds[i] / iters * 1e3:.2f} ms/step)",
+              flush=True)
+        check(bool(np.isfinite(score[best])), f"{name} stage {i} final NLML finite")
+        gp, p = model.gp_list[i], clock.params[i]["gp"][i]
+        if name == "CAR" and i > 0:
+            p = car._bind_b(p, clock.params[i]["b"])
+        x, y, y_var = _stage_data(torch, dm, name, i, device)
+        with torch.no_grad():
+            v_card = float(gp.nll(p, x, y, y_var=y_var))
+        check_stage_nll(torch, f"{name} stage {i}", v_card,
+                        plain_stage_nll(torch, gp, p, x, y, torch.float32, y_var),
+                        plain_stage_nll(torch, gp, p, x, y, torch.float64, y_var),
+                        float(score[best]), x.shape[0])
+    mean_np = mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean_np - y_test) ** 2)))
+    bar = 0.25 if name == "CAR" else 0.1
+    print(f"{name}: test RMSE vs sin(x) {rmse:.5f}  wall {sum(clock.seconds):.3f} s (train)  "
+          f"launches {counts}", flush=True)
+    check(bool(np.isfinite(mean_np).all()) and mean_np.shape == (1000, 1)
+          and cov.shape == (1000, 1000), f"{name} forward: finite mean (1000, 1), cov (1000, 1000)")
+    check(rmse < bar, f"{name} test RMSE {rmse:.5f} < {bar}")
+    if name != "CAR":
+        dif = (pm - mean).abs().max().item()
+        vdif = (pv - cov.diagonal()).abs().max().item()
+        check(dif < 1e-3 and vdif < 1e-3, f"{name} export_posterior matches forward: max |dmean| "
+                                          f"{dif:.2e}, |dvar| {vdif:.2e}")
+    cascade_launches(name, ("gram", "chol", "chol_batched", "tri_inv"), counts)
+    return rmse
+
+
+def fit_path(torch, name, fit_fn, nll_fn, plain_fn, rows, report):
+    """An unbatched fit of ``FIT_STEPS`` steps: ``fit_fn()`` returns the loss
+    history; afterwards ``nll_fn()`` (the kernels) and ``plain_fn(dtype)``
+    (the plain versions) give the final NLML.  Checks finite, falling
+    losses and the final NLML against the plain versions."""
+    from fidelityfusion_tpu_torch.ops import cuda
+
+    cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = fit_fn().cpu()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    counts = cuda.launch_counts()
+    report["launches_by_path"][name] = counts
+    report["cascades"][name] = {"seconds": sec, "ms_per_step": sec / FIT_STEPS * 1e3}
+    print(f"{name}: {FIT_STEPS} unbatched steps over {rows} rows: NLML {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, wall {sec:.3f} s ({sec / FIT_STEPS * 1e3:.2f} ms/step), launches "
+          f"{counts}", flush=True)
+    check(bool(torch.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"{name}: losses finite and falling")
+    with torch.no_grad():
+        check_stage_nll(torch, name, float(nll_fn()), plain_fn(torch.float32),
+                        plain_fn(torch.float64), None, rows)
+    cascade_launches(name, ("gram", "chol", "tri_inv"), counts)
+
+
+def car_large_path(torch, device, report):
+    """CAR-large: a `FIT_STEPS`-step joint fit over all the fidelities' rows
+    (1024 + 512 + 256), then `forward`; RMSE < 0.4 (the JAX test's bar)."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.models import car
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
+    from fidelityfusion_tpu_torch.utils.tree import tree_map
+
+    _, dm, x_test, y_test = main_path_setup(device)
+    model = car.ContinuousAutoRegressionLarge(3, ARDKernel(), device=device)
+    x, y = model.joint_train_data(dm)
+
+    def plain(dtype):
+        p = tree_map(lambda a: a.to(dtype), model.params)
+        return plain_nll(torch, plain_sigma(torch, model.gp, p, x.to(dtype)), y.to(dtype))
+
+    fit_path(torch, "CAR-large",
+             lambda: car.train_CAR_large(model, dm, max_iter=FIT_STEPS, lr_init=5e-2),
+             lambda: model.gp.nll(model.params, x, y), plain, x.shape[0], report)
+    with torch.no_grad():
+        mean, cov = model.forward(dm, x_test)
+    mean_np = mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean_np - y_test) ** 2)))
+    print(f"CAR-large: test RMSE vs sin(x) {rmse:.5f}", flush=True)
+    check(bool(np.isfinite(mean_np).all()) and cov.shape == (1000, 1000),
+          "CAR-large forward: finite mean, cov (1000, 1000)")
+    check(rmse < 0.4, f"CAR-large test RMSE {rmse:.5f} < 0.4")
+    return rmse
+
+
+def fides_path(torch, device, report):
+    """FIDES at bounds (0, 1, 0, 1): a `FIT_STEPS`-step fit to 1024 rows of
+    the toy's top fidelity (sin(x) + noise), standardized as the demo does,
+    then `predict` at 1000 test points; RMSE < 0.2 (the JAX test's bar),
+    variances > 0."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.demo import _toy_3fid
+    from fidelityfusion_tpu_torch.models.fides import FIDES, FidelityBounds
+    from fidelityfusion_tpu_torch.ops.gram import gram_plain
+    from fidelityfusion_tpu_torch.train.fit import fit
+    from fidelityfusion_tpu_torch.utils.tree import tree_map
+
+    xs, ys, x_test, y_test = _toy_3fid(seed=1, sizes=(1024,) * 3, pool=2048, n_test=1000,
+                                       nested=True)
+    xm, xsd, ym, ysd = xs[2].mean(), xs[2].std(), ys[2].mean(), ys[2].std()
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    x, y, xt = t((xs[2] - xm) / xsd), t((ys[2] - ym) / ysd), t((x_test - xm) / xsd)
+    fides, bounds = FIDES(), FidelityBounds(0.0, 1.0, 0.0, 1.0)
+    state = {"params": fides.init_params(1, device=device)}
+
+    def run():
+        res = fit(fides.nll, state["params"], steps=FIT_STEPS, lr=5e-2, loss_args=(x, y, bounds))
+        state["params"] = res.params
+        return res.losses
+
+    def plain(dtype):
+        p = tree_map(lambda a: a.to(dtype), state["params"])
+        inv_ls, sv = fides.gram_args(p, 1, bounds)
+        Sigma = gram_plain(x.to(dtype), x.to(dtype), inv_ls.reshape(1, -1), sv.reshape(1),
+                           (fides.noise(p) + fides.jitter).reshape(1))[0]
+        return plain_nll(torch, Sigma, y.to(dtype))
+
+    fit_path(torch, "FIDES", run, lambda: fides.nll(state["params"], x, y, bounds), plain,
+             x.shape[0], report)
+    with torch.no_grad():
+        mean, var = fides.predict(state["params"], x, y, xt, bounds)
+    mean_np = mean.cpu().numpy() * ysd + ym
+    rmse = float(np.sqrt(np.mean((mean_np - y_test) ** 2)))
+    print(f"FIDES: test RMSE vs sin(x) {rmse:.5f}", flush=True)
+    check(bool(np.isfinite(mean_np).all()) and bool((var > 0).all()),
+          "FIDES predict: finite mean, variances > 0")
+    check(rmse < 0.2, f"FIDES test RMSE {rmse:.5f} < 0.2")
+    return rmse
+
+
+def cascade_paths(torch, device, iters, report):
+    """Phase 4: the slice's other cascades, each with its own launch counts."""
+    report.setdefault("launches_by_path", {})["AR"] = report["main_counts"]
+    report["cascades"] = {}
+    rmse = {name: staged_cascade(torch, device, name, iters, report)
+            for name in ("ResGP", "NAR", "CAR")}
+    rmse["CAR-large"] = car_large_path(torch, device, report)
+    rmse["FIDES"] = fides_path(torch, device, report)
+    report["cascade_rmse"] = rmse
 
 
 def unbatched_paths(torch, device):
@@ -577,6 +879,7 @@ def main(argv=None) -> int:
     ill_conditioned_checks(torch, device)
     nan_pivot_check(torch, device)
     main_path(torch, device, args.iters, report)
+    cascade_paths(torch, device, args.iters, report)
     unbatched_paths(torch, device)
     count_device_ops(torch, device, report)
 
@@ -585,11 +888,13 @@ def main(argv=None) -> int:
     for key, label in (("gram", "K1 gram"), ("chol", "K2 chol"),
                        ("chol_batched", "K3a chol_batched"), ("tri_inv", "K3b tri_inv")):
         k = dict(report[key])
-        k.update(name=label, route="cuda", launches=counts.get(key, 0))
+        k.update(name=label, route="cuda", launches=counts.get(key, 0), launches_by_path={
+            path: c.get(key, 0) for path, c in report["launches_by_path"].items()})
         kernels.append({f: k.get(f) for f in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape") + tuple(
-            f for f in ("timing", "call_ms", "cross_ms", "cross_bound_ms", "leaf_us",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_by_path") + tuple(
+            f for f in ("timing", "call_ms", "cross_ms", "cross_bound_ms", "cross_plain_ms",
+                        "cross_library_ms", "cross_max_abs_err", "d2", "leaf_us",
                         "device_ops_per_call", "shapes") if f in k)})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

@@ -2,8 +2,12 @@
 
 The JAX package keeps parameters as pytrees of arrays; given as numpy
 arrays (e.g. ``jax.tree_util.tree_map(np.asarray, params)``) they become
-the port's float32 tensors here, so the same weights can run through both
-implementations.
+the port's float32 tensors here, so the same weights run through both
+implementations.  The Monte-Carlo draws that the JAX models keep under
+``_`` keys (`MCFidelityKernel`'s ``_z``, `ContinuousFidelityKernel`'s
+``_w`` and ``_t``, FIDES's ``_u``) come across with them: loaded from a
+JAX model's initial parameters, a port model trains from exactly the
+JAX package's init.
 """
 
 from __future__ import annotations
@@ -15,16 +19,21 @@ from fidelityfusion_tpu_torch.utils.tree import tree_map
 
 
 def params_from_numpy(tree, device="cuda"):
-    """A parameter tree of numpy arrays (e.g. a CIGP's ``{"kernel": {...},
-    "log_beta": ...}``) as float32 tensors on ``device``."""
+    """A parameter tree of numpy arrays (nested dicts, lists and tuples:
+    a CIGP's ``{"kernel": {...}, "log_beta": ...}``, FIDES's parameters)
+    as float32 tensors on ``device``."""
     return tree_map(
         lambda a: torch.tensor(np.asarray(a, np.float32), device=device), tree)
 
 
-def load_ar_state(model, params, stage_norm) -> None:
-    """Set an `models.ar.AR`'s parameters from the JAX model's ``params``
-    (``{"gp": [...], "rho": [...]}`` of numpy arrays) and ``stage_norm``
-    (per-stage ``(shift, scale)``)."""
-    model.params = params_from_numpy(
-        {"gp": list(params["gp"]), "rho": list(params["rho"])}, model.device)
-    model.stage_norm = [(float(s), float(c)) for s, c in stage_norm]
+def load_state(model, params, stage_norm=None) -> None:
+    """Set a cascade's parameters from the JAX model's ``params`` (numpy
+    arrays) and, for the models that standardize residuals per stage,
+    ``stage_norm`` (per-stage ``(shift, scale)``).  One loader for every
+    cascade: `AR` (``{"gp": [...], "rho": [...]}``), `ResGP` and `NAR`
+    (``{"gp": [...]}``), staged CAR (``{"gp": [...], "b": ...}``, each
+    residual kernel with its ``_z``) and CAR-large (one GPBasic's
+    parameters, its kernel with ``_w`` and ``_t``)."""
+    model.params = params_from_numpy(params, model.device)
+    if stage_norm is not None:
+        model.stage_norm = [(float(s), float(c)) for s, c in stage_norm]

@@ -17,14 +17,16 @@
 // exactly sv.  Ragged n1 and n2 (the n x m cross-Gram of predict) are
 // masked.  Two paths:
 //   * the d of the port's callers (d = 1: the main path, the unbatched
-//     fits): templated on d, no shared memory and no barrier; a caller
-//     with another small d adds its instantiation in ff_gram.  A CTA of
-//     256 threads owns 32 x 128 output tiles in turn (a grid of one wave,
-//     8 CTAs per SM, or one CTA a tile if fewer); a thread keeps its 4
-//     columns of x2, scaled by 1 / length-scale, in registers, reads a row
-//     of x1 at a time (one broadcast per warp), and writes 4 outputs of a
-//     row as one 16-byte store: a warp writes 512 contiguous bytes.  The
-//     diagonal terms are looked at only in tiles that straddle the diagonal.
+//     fits and every other cascade's stages; d = 2: NAR's stages i >= 1,
+//     whose input is [x, y_low]): templated on d, no shared memory and no
+//     barrier; a caller with another small d adds its instantiation in
+//     ff_gram.  A CTA of 256 threads owns 32 x 128 output tiles in turn
+//     (a grid of one wave, 8 CTAs per SM, or one CTA a tile if fewer); a
+//     thread keeps its 4 columns of x2, scaled by 1 / length-scale, in
+//     registers, reads a row of x1 at a time (one broadcast per warp), and
+//     writes 4 outputs of a row as one 16-byte store: a warp writes 512
+//     contiguous bytes.  The diagonal terms are looked at only in tiles
+//     that straddle the diagonal.
 //   * any other d: one CTA per 32 x 32 tile and restart, the tile's rows of
 //     x1 and x2 staged in shared memory in chunks of 32 dimensions, already
 //     scaled, the d loop in registers.
@@ -188,6 +190,9 @@ extern "C" int ff_gram(const float* x1, const float* x2, const float* inv_ls,
   if (d == 1)
     return static_cast<int>(
         launch_small_d<1>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
+  if (d == 2)
+    return static_cast<int>(
+        launch_small_d<2>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
   dim3 grid((n2 + T - 1) / T, (n1 + T - 1) / T, B);
   dim3 block(T, 8);
   gram_kernel<<<grid, block, 0, st>>>(x1, x2, inv_ls, sv, diag_add, y_var, out, n1, n2, d);

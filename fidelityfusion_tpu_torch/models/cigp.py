@@ -1,21 +1,23 @@
-"""CIGP: conditionally-independent multi-output exact GP.
+"""CIGP and GPBasic: exact GPs over one kernel.
 
-Port of `fidelityfusion_tpu/models/cigp.py` (`CIGP` only; `GPBasic` and
-`CIGPWithMean` are not ported yet).  One shared kernel and scalar noise
-across output columns; the NLML sums over columns.  The model is a static
-spec plus a parameter dict; ``noise = exp(log_beta)^-1`` with a relative
-floor ``min_noise * mean(diag K)``.
+Port of `fidelityfusion_tpu/models/cigp.py` (`CIGP` and `GPBasic`;
+`CIGPWithMean` is not ported yet).  CIGP: one shared kernel and scalar
+noise across output columns, the NLML summed over columns, ``noise =
+exp(log_beta)^-1`` with a relative floor ``min_noise * mean(diag K)``.
+GPBasic: the same with ``noise = noise_variance^2`` and predictions
+without the noise.  Each model is a static spec plus a parameter dict.
 
 Parameter leaves may carry a leading restart dimension; ``y`` is then
 ``(*batch, n, d)`` or a shared ``(n, d)`` (a 1-D ``(n,)`` is one column),
-and ``y_var`` ``(*batch, n)`` or ``(n,)``.  Sigma is built in one K1 pass (Gram + noise + jitter +
-y_var on the diagonal); the mask is a torch op after it.
+and ``y_var`` ``(*batch, n)`` or ``(n,)``.  For an SE-form kernel Sigma is
+built in one K1 pass (Gram + noise + jitter + y_var on the diagonal); the
+mask is a torch op after it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -30,6 +32,25 @@ def _targets(y):
     """Targets as ``(n, d)`` or ``(*batch, n, d)``: a 1-D ``(n,)`` gains its
     column."""
     return y[:, None] if y.ndim == 1 else y
+
+
+def build_sigma(gp, params, x, y_var=None, mask=None):
+    """Sigma = K + (noise + jitter) I (+ diag(y_var)) of a CIGP or GPBasic
+    ``gp``, masked rows -> identity.  ``gp.noise(params, mean(diag K))``
+    gives the noise.  An SE-form kernel's mean diagonal is its signal
+    variance, and K1 adds the diagonal in the Gram's own pass; any other
+    kernel's Gram is built first and `linalg.assemble_sigma` adds it."""
+    kp = params["kernel"]
+    if not gp.kernel.SE_FORM:
+        K = gp.kernel.apply(kp, x, x)
+        k_mean = K.diagonal(dim1=-2, dim2=-1).mean(-1)
+        return linalg.assemble_sigma(K, gp.noise(params, k_mean), jitter=gp.jitter,
+                                     y_var=y_var, mask=mask,
+                                     relative_jitter=gp.relative_jitter)
+    sv = gp.kernel.signal_variance(kp)  # mean(diag K)
+    jit = gp.jitter * sv if gp.relative_jitter else gp.jitter
+    Sigma = gp.kernel.apply(kp, x, x, diag_add=gp.noise(params, sv) + jit, y_var=y_var)
+    return Sigma if mask is None else linalg.apply_mask(Sigma, mask)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +88,6 @@ class CIGP:
         if self.x64_factor:
             raise NotImplementedError("x64_factor is not ported yet")
 
-    def _sigma(self, params, x, y_var, mask):
-        sv = self.kernel.signal_variance(params["kernel"])  # mean(diag K)
-        jit = self.jitter * sv if self.relative_jitter else self.jitter
-        Sigma = self.kernel.apply(params["kernel"], x, x,
-                                  diag_add=self.noise(params, sv) + jit, y_var=y_var)
-        return Sigma if mask is None else linalg.apply_mask(Sigma, mask)
-
     def nll(self, params, x, y, y_var=None, mask=None) -> torch.Tensor:
         """Negative log marginal likelihood (``(*batch)``) to minimize."""
         self._check_x64()
@@ -93,7 +107,7 @@ class CIGP:
             from fidelityfusion_tpu_torch.ops.fused_se import se_nlml
 
             return se_nlml(params, x, y2, self.jitter, min_noise=self.min_noise)
-        Sigma = self._sigma(params, x, y_var, mask)
+        Sigma = build_sigma(self, params, x, y_var, mask)
         if self.blocked_nll:
             from fidelityfusion_tpu_torch.ops.blocked import mvn_nll_blocked
 
@@ -113,7 +127,7 @@ class CIGP:
                 mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Posterior mean and full test covariance plus the noise."""
         self._check_x64()
-        Sigma = self._sigma(params, x_train, y_var, mask)
+        Sigma = build_sigma(self, params, x_train, y_var, mask)
         K_s = self.kernel.apply(params["kernel"], x_train, x_test)
         K_ss = self.kernel.apply(params["kernel"], x_test, x_test)
         mean, cov = linalg.posterior(Sigma, y_train, K_s, K_ss, mask=mask)
@@ -123,7 +137,7 @@ class CIGP:
                      mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Posterior mean and diagonal variance plus the noise."""
         self._check_x64()
-        Sigma = self._sigma(params, x_train, y_var, mask)
+        Sigma = build_sigma(self, params, x_train, y_var, mask)
         K_s = self.kernel.apply(params["kernel"], x_train, x_test)
         k_ss = self.kernel.diag(params["kernel"], x_test)
         mean, var = linalg.posterior_diag(Sigma, y_train, K_s, k_ss, mask=mask)
@@ -132,7 +146,7 @@ class CIGP:
     def posterior_cache(self, params, x_train, y_train, y_var=None, mask=None) -> dict:
         """One-time (inv(L), alpha) factorization of the training set."""
         self._check_x64()
-        Sigma = self._sigma(params, x_train, y_var, mask)
+        Sigma = build_sigma(self, params, x_train, y_var, mask)
         return linalg.posterior_cache(Sigma, y_train, mask=mask)
 
     def predict_diag_cached(self, params, cache, x_train, x_test, mask=None):
@@ -148,6 +162,50 @@ class CIGP:
         K_ss = self.kernel.apply(params["kernel"], x_test, x_test)
         mean, cov = linalg.posterior_cached(cache, K_s, K_ss, mask=mask)
         return mean, _clamp_diag(cov) + self._noise_out(params)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPBasic:
+    """Exact GP with a directly parametrized noise std: ``noise =
+    max(noise_variance^2, min_noise * mean(diag K))``.  Unlike CIGP, its
+    predictions do not add the noise (the JAX package's
+    `cigp.py:GPBasic.predict`)."""
+
+    kernel: Kernel
+    jitter: float = JITTER
+    relative_jitter: bool = False
+    min_noise: float = 1e-4  # f32 RELATIVE nugget floor (see CIGP.min_noise)
+
+    def init_params(self, input_dim: int, noise_variance: float = 1.0, device="cuda"):
+        device = resolve_device(device)
+        return {
+            "kernel": self.kernel.init_params(input_dim, device=device),
+            "noise_variance": torch.tensor([noise_variance], device=device),
+        }
+
+    def noise(self, params, K_diag_mean=1.0) -> torch.Tensor:
+        return torch.maximum(params["noise_variance"][..., 0] ** 2,
+                             self.min_noise * K_diag_mean)
+
+    def nll(self, params, x, y, y_var=None, mask=None) -> torch.Tensor:
+        """Negative log marginal likelihood (``(*batch)``): K2/K3a + K3b."""
+        return linalg.mvn_nll(build_sigma(self, params, x, y_var, mask), y, mask=mask)
+
+    def predict(self, params, x_train, y_train, x_test, y_var=None,
+                mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Posterior mean and full test covariance, without the noise."""
+        Sigma = build_sigma(self, params, x_train, y_var, mask)
+        K_s = self.kernel.apply(params["kernel"], x_train, x_test)
+        K_ss = self.kernel.apply(params["kernel"], x_test, x_test)
+        return linalg.posterior(Sigma, y_train, K_s, K_ss, mask=mask)
+
+    def predict_diag(self, params, x_train, y_train, x_test, y_var=None,
+                     mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Posterior mean and diagonal variance, without the noise."""
+        Sigma = build_sigma(self, params, x_train, y_var, mask)
+        K_s = self.kernel.apply(params["kernel"], x_train, x_test)
+        k_ss = self.kernel.diag(params["kernel"], x_test)
+        return linalg.posterior_diag(Sigma, y_train, K_s, k_ss, mask=mask)
 
 
 def _clamp_diag(cov):

@@ -1,16 +1,16 @@
 """Covariance kernels as static specs over parameter dicts of tensors.
 
-Port of `fidelityfusion_tpu/ops/kernels.py` (the parts the AR main path
-needs: `sq_dist`, `Kernel`, `ARDKernel`, `SquaredExponentialKernel`,
-`median_heuristic`, `trainable_mask`).  A spec is a frozen dataclass that
-holds no tensors:
+Port of `fidelityfusion_tpu/ops/kernels.py` (the parts the CIGP cascades
+need: `sq_dist`, `Kernel`, `ARDKernel`, `SquaredExponentialKernel`,
+`MCFidelityKernel`, `median_heuristic`, `trainable_mask`).  A spec is a
+frozen dataclass that holds no tensors:
 
     params = spec.init_params(input_dim, device=...)   # dict of tensors
     K      = spec(params, x1, x2)                      # (*batch, n1, n2)
 
 Parameter leaves may carry a leading batch dimension (the restart axis);
 the Gram then has the same batch.  The Gram itself is K1 (`ops/gram.py`):
-both kernels here are an SE form ``sv * exp(-0.5 ||(x1 - x2) / ls||^2)``,
+every kernel here is an SE form ``sv * exp(-0.5 ||(x1 - x2) / ls||^2)``,
 so each only says what its ``1/ls`` and ``sv`` are (`gram_args`), and the
 noise diagonal can ride in the same pass (``diag_add``, ``y_var``).
 
@@ -66,7 +66,11 @@ def median_heuristic(x: torch.Tensor, max_rows: int = 256) -> torch.Tensor:
 
 class Kernel:
     """Base class: a static spec; subclasses define `init_params` and
-    `gram_args`."""
+    `gram_args`.  A kernel whose Gram is not an SE form (`models/car.py:
+    ContinuousFidelityKernel`) sets ``SE_FORM = False`` and overrides
+    `apply` and `diag` instead."""
+
+    SE_FORM = True
 
     def init_params(self, input_dim: int, device="cuda") -> dict:
         raise NotImplementedError
@@ -142,6 +146,63 @@ class SquaredExponentialKernel(Kernel):
         out = dict(params)
         mean = torch.as_tensor(ls, dtype=torch.float32).mean()
         out["length_scale"] = torch.log(mean).reshape(1).to(params["length_scale"].device)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MCFidelityKernel(Kernel):
+    """A base kernel over x times a Monte-Carlo integrated fidelity factor
+    over z in [lf, hf] (staged CAR's residual kernel):
+
+        factor = mean_z[exp(-b (z1 - hf) - b (z2 - hf) - 0.5 (z1 - z2)^2 / ls^2)]
+                 * (hf - lf)^2,   k = |sv| * factor * base(x1, x2).
+
+    The factor is one scalar per restart, so the Gram is still an SE form:
+    `gram_args` is the base kernel's ``1/ls`` and ``|sv| * factor *
+    base_sv``, and K1 builds Gram and nugget in one pass.  The z draws are
+    drawn once from ``torch.Generator().manual_seed(seed)`` (the JAX package
+    draws its own with `jax.random`; `convert.py` carries those across) and
+    kept under ``"_z"``, which training leaves frozen.  ``b`` is a
+    parameter here so that staged CAR can bind its one global ``b`` in."""
+
+    base: Kernel
+    lf: float = 0.0
+    hf: float = 1.0
+    n_mc: int = 100
+    seed: int = 105
+    eps: float = 1e-3
+
+    def init_params(self, input_dim: int, device="cuda"):
+        gen = torch.Generator().manual_seed(self.seed)
+        width = self.hf - self.lf
+        z1 = torch.rand((self.n_mc,), generator=gen) * width + self.lf
+        z2 = torch.rand((self.n_mc,), generator=gen) * width + self.lf
+        return {
+            "base": self.base.init_params(input_dim, device=device),
+            "length_scales": torch.ones((input_dim,), device=device),
+            "signal_variance": torch.ones((1,), device=device),
+            "b": torch.tensor(1.0, device=device),
+            "_z": (z1.to(device), z2.to(device)),
+        }
+
+    def fidelity_factor(self, params) -> torch.Tensor:
+        """The factor, shape ``(*batch)``."""
+        ls = (torch.abs(params["length_scales"]) + self.eps)[..., :1]
+        z1, z2 = params["_z"]
+        b = params["b"][..., None]
+        dist_z = (z1 / ls - z2 / ls) ** 2
+        expo = -b * (z1 - self.hf) - b * (z2 - self.hf) - 0.5 * dist_z
+        z_part = torch.exp(torch.clamp(expo, max=20.0))  # overflow guard
+        return z_part.mean(-1) * (self.hf - self.lf) * (self.hf - self.lf)
+
+    def gram_args(self, params, d):
+        inv_ls, base_sv = self.base.gram_args(params["base"], d)
+        sv = torch.abs(params["signal_variance"][..., 0]) * self.fidelity_factor(params)
+        return inv_ls, sv * base_sv
+
+    def set_lengthscales(self, params, ls):
+        out = dict(params)
+        out["base"] = self.base.set_lengthscales(params["base"], ls)
         return out
 
 

@@ -163,9 +163,9 @@ def gp_restart_batch(kernel_spec, gp_params: dict, x, n: int,
                      generator: Optional[torch.Generator] = None):
     """``n`` restart initializations of one GP's parameter dict: restart 0
     is ``gp_params``; restart i >= 1 sets the length scales to
-    ``LADDER_FACTORS[i-1] * median_heuristic(x)`` and a low-noise
-    ``log_beta = 2`` (a deterministic ladder); restarts past the ladder are
-    random jitter from ``generator``."""
+    ``LADDER_FACTORS[i-1] * median_heuristic(x)`` and a low noise (a CIGP's
+    ``log_beta = 2``, a GPBasic's ``noise_variance = 0.3``): a deterministic
+    ladder; restarts past the ladder are random jitter from ``generator``."""
     med = median_heuristic(x)
     out = [gp_params]
     for i in range(1, n):
@@ -173,8 +173,9 @@ def gp_restart_batch(kernel_spec, gp_params: dict, x, n: int,
             p = dict(gp_params)
             p["kernel"] = kernel_spec.set_lengthscales(
                 gp_params["kernel"], med * LADDER_FACTORS[i - 1])
-            if "log_beta" in p:
-                p["log_beta"] = torch.tensor([2.0], device=p["log_beta"].device)
+            for key, low in (("log_beta", 2.0), ("noise_variance", 0.3)):
+                if key in p:
+                    p[key] = torch.tensor([low], device=p[key].device)
             out.append(p)
         else:
             jittered = perturb_params(generator, gp_params, scale=1.0, n=2)

@@ -11,7 +11,7 @@ import torch
 from fidelityfusion_tpu.models import ar as JA
 from fidelityfusion_tpu.models.data_manager import MultiFidelityDataManager as JDM
 from fidelityfusion_tpu.ops.kernels import SquaredExponentialKernel as JSE
-from fidelityfusion_tpu_torch.convert import load_ar_state
+from fidelityfusion_tpu_torch.convert import load_state
 from fidelityfusion_tpu_torch.demo import _toy_3fid
 from fidelityfusion_tpu_torch.models import ar as TA
 from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager as TDM
@@ -113,7 +113,7 @@ def test_forward_and_export_with_carried_params_match_jax(jax_runs):
         if entry["fidelity_index"] is None:  # the residual datasets of training
             dm.add_data(name, None, entry["X"], entry["Y"])
     model = TA.AR(3, [TSE() for _ in range(3)], device="cpu")
-    load_ar_state(model, jax.tree_util.tree_map(np.asarray, jm.params), jm.stage_norm)
+    load_state(model, jax.tree_util.tree_map(np.asarray, jm.params), jm.stage_norm)
     xt = ref["x_test"]
     m64, c64 = _jax_cascade_f64(jm, jdm, xt)
     jpost, jstate = jm.export_posterior(jdm)

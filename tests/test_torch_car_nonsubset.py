@@ -1,0 +1,17 @@
+"""Staged CAR end to end against the JAX package on the CPU: training from the JAX init on the
+non-subset design, through the imputation path
+(`tests/torch_port_checks.py` says what is checked and to which
+tolerance).  The JAX MC z draws come across with the init."""
+
+import pytest
+
+from tests import torch_port_checks as C
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    return C.jax_runs()
+
+
+def test_car_nonsubset_training_from_jax_init_matches_jax(jax_runs):
+    C.check_training(jax_runs, "CAR", True)

@@ -33,7 +33,7 @@ def _spd(dev, R, n):
                                      (96, 96, 3), (1024, 1000, 1), (130, 1001, 1), (37, 300, 2),
                                      (200, 200, 8), (96, 96, 9), (64, 64, 40)])
 def test_gram_kernel_matches_plain(dev, n1, n2, d):
-    """d = 1 takes the register path, every other d the chunked one; ragged
+    """d = 1 and 2 take the register path, every other d the chunked one; ragged
     n1 and n2, n2 not a multiple of 4 (scalar stores), nugget and y_var
     on square Grams."""
     from fidelityfusion_tpu_torch.ops.gram import gram, gram_plain
@@ -47,6 +47,23 @@ def test_gram_kernel_matches_plain(dev, n1, n2, d):
     got = gram(x1, x2, inv_ls, sv, diag_add=da, y_var=yv)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, gram_plain(x1, x2, inv_ls, sv, da, yv), rtol=1e-4, atol=1e-5)
+
+
+def test_gram_kernel_at_nar_stage_shape(dev):
+    """NAR's stage-1 training Gram: 4 restarts, n = 512, d = 2 ([x, y_low]),
+    nugget and y_var, on the register path; the diagonal is exact."""
+    from fidelityfusion_tpu_torch.ops.gram import gram, gram_plain
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((512, 2), generator=g).to(dev)
+    inv_ls = (torch.rand((4, 2), generator=g) + 0.5).to(dev)
+    sv = torch.tensor([0.5, 1.0, 1.5, 2.0], device=dev)
+    da = torch.tensor([1e-2, 1e-3, 0.1, 1e-4], device=dev)
+    yv = torch.rand((4, 512), generator=g).to(dev)
+    got = gram(x, x, inv_ls, sv, diag_add=da, y_var=yv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, gram_plain(x, x, inv_ls, sv, da, yv), rtol=1e-4, atol=1e-5)
+    assert (got.diagonal(dim1=1, dim2=2) == sv[:, None] + da[:, None] + yv).all()
 
 
 @pytest.mark.parametrize("d", [1, 3, 40])

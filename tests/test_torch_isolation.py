@@ -43,15 +43,28 @@ def no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from fidelityfusion_tpu_torch import demo
     from fidelityfusion_tpu_torch.models.ar import AR
-    from fidelityfusion_tpu_torch.models.cigp import CIGP
-    from fidelityfusion_tpu_torch.ops.kernels import SquaredExponentialKernel
+    from fidelityfusion_tpu_torch.models.car import (
+        ContinuousAutoRegression, ContinuousAutoRegressionLarge)
+    from fidelityfusion_tpu_torch.models.cigp import CIGP, GPBasic
+    from fidelityfusion_tpu_torch.models.fides import FIDES
+    from fidelityfusion_tpu_torch.models.nar import NAR
+    from fidelityfusion_tpu_torch.models.resgp import ResGP
+    from fidelityfusion_tpu_torch.models.respca import PCA
+    from fidelityfusion_tpu_torch.ops.kernels import (
+        ARDKernel, MCFidelityKernel, SquaredExponentialKernel)
 
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        AR(3, [SquaredExponentialKernel()] * 3)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        CIGP(SquaredExponentialKernel()).init_params(1)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        demo.main(["AR", "--iters", "1"])
+    se, ard = SquaredExponentialKernel(), ARDKernel()
+    for make in (lambda: AR(3, [se] * 3), lambda: ResGP(3, [se] * 3), lambda: NAR(3, [se] * 3),
+                 lambda: ContinuousAutoRegression(3, [ard] * 3),
+                 lambda: ContinuousAutoRegressionLarge(3, ard),
+                 lambda: CIGP(se).init_params(1), lambda: GPBasic(ard).init_params(1),
+                 lambda: GPBasic(MCFidelityKernel(base=ard)).init_params(1),
+                 lambda: FIDES().init_params(1), lambda: PCA(np.ones((4, 3)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for model in ("AR", "NAR", "ResGP", "CAR", "CAR_large", "CIGP", "FIDES"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            demo.main([model, "--iters", "1"])
 
 
 def test_chip_smoke_refuses_without_a_card(no_cuda, capsys):
