@@ -13,13 +13,16 @@ prints no result line):
    call that computes the same function, and the bound from shapes (K1
    and K3b by device time, from a CUDA graph of their calls; K2/K3a by
    CUDA events over back-to-back calls, each longer than its enqueue);
-   K1 also at NAR's d = 2 (its stages i >= 1 train on [x, y_low]); K2 also
+   K1 also at NAR's d = 2 (its stages i >= 1 train on [x, y_low]) and at
+   the Kronecker path's d = 4 (the Poisson source parameters); K2 also
    at CAR-large's n = 1792; K3b at every K3a shape and at n = 1792 and
    2048; for K2/K3a also time the leaf alone; factor ill-conditioned SE
    Grams (relative nugget 1e-6) through K2/K3a and K3b against the plain
    versions in float32 and float64, and a batch with a negative pivot,
    whose factor, inverse and NLML must come out NaN while the other
-   matrices' do not;
+   matrices' do not; time the Kronecker path's library calls
+   (`torch.linalg.eigh`, a `jacobi_refine` sweep, the hogp1024
+   mode-product chain);
 3. the main path: `train_AR` of a 3-fidelity AR cascade over SE CIGPs
    with 4 restarts on nested (1024, 512, 256)-row subsets of the toy sin,
    then `forward` and `export_posterior` on 1000 test points; every
@@ -30,9 +33,17 @@ prints no result line):
    the main path, CAR-large (a 60-step joint fit over all 1792 rows) and
    FIDES (a 60-step fit to 1024 top-fidelity rows); each stage's NLML is
    held against the plain versions in float32 and float64;
-5. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
+5. the Kronecker path, each driven alike: HOGP at the JAX bench's
+   shipping shape (n = 1024, output (32, 32, 32), 130 tracked steps:
+   residual < 0.30, tracked vs exact NLML, NLML vs the plain float64
+   one); GAR over ARD
+   HOGPs on Poisson fields at resolutions (8, 16, 32) with d_in = 4 on
+   the nested `SIZES` rows, 4 restarts (stages 0 and 1 tracked, stage 2
+   exact eigh), `forward` on 128 test samples (relative error < 0.6);
+   CIGAR on the same data (K1/K2/K3a/K3b); a NaN restart isolated;
+6. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
    an ARD fit (`mvn_nll_hybrid`);
-6. the device kernels of one K2/K3a call and one K3b call, under
+7. the device kernels of one K2/K3a call and one K3b call, under
    `torch.profiler` (last: tracing slows every launch after it).
 
 The second-to-last line is `{"kernels": [...]}`, the last
@@ -211,6 +222,88 @@ def gram_d2_checks(torch, device, gen, library_gram):
                 cross_max_abs_err=err_c.max().item())
 
 
+def gram_d4_checks(torch, device, gen, library_gram):
+    """K1 at the Kronecker path's d = 4 (the Poisson source parameters of
+    every HOGP, GAR and CIGAR stage): the (4, 1024) training Gram with the
+    jitter nugget and the 128 x 1024 cross-Gram of `predict`, against the
+    plain version; the square one timed by device time beside its bound,
+    plain version and `cdist`.  The length scales go in as (R, 4), so a
+    tree whose wrapper does not broadcast a dim-1 scale times the same
+    call (the dim-1 scale is checked in the Kronecker phase)."""
+    from fidelityfusion_tpu_torch.ops import gram as G
+
+    R, n, d, m = 4, 1024, 4, 128
+    x = torch.rand((n, d), generator=gen).to(device)
+    inv_ls = (0.5 + torch.rand((R, d), generator=gen)).to(device)
+    sv = torch.linspace(0.5, 2.0, R).to(device)
+    da = torch.full((R,), 1e-6, device=device)
+    got, want = G.gram(x, x, inv_ls, sv, diag_add=da), G.gram_plain(x, x, inv_ls, sv, da)
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 + 1e-4 * want.abs()).all())
+          and bool((got.diagonal(dim1=1, dim2=2) == (sv + da)[:, None]).all()),
+          f"K1 gram R={R} n={n} d={d} (jitter nugget): max abs err {err.max().item():.3e} "
+          f"(rtol 1e-4, atol 1e-5), diagonal exact")
+    xt = torch.rand((m, d), generator=gen).to(device)
+    got_c, want_c = G.gram(xt, x, inv_ls, sv), G.gram_plain(xt, x, inv_ls, sv)
+    err_c = (got_c - want_c).abs()
+    check(bool((err_c <= 1e-5 + 1e-4 * want_c.abs()).all()),
+          f"K1 cross-gram {m}x{n} d={d}: max abs err {err_c.max().item():.3e}")
+    ms = device_ms(torch, lambda: G.gram(x, x, inv_ls, sv, diag_add=da))
+    plain_ms = device_ms(torch, lambda: G.gram_plain(x, x, inv_ls, sv, da))
+    lib_ms = device_ms(torch, lambda: library_gram(x, x, inv_ls, sv, da))
+    cross_ms = device_ms(torch, lambda: G.gram(xt, x, inv_ls, sv))
+    cross_plain_ms = device_ms(torch, lambda: G.gram_plain(xt, x, inv_ls, sv))
+    cross_lib_ms = device_ms(torch, lambda: library_gram(xt, x, inv_ls, sv))
+    b_ms, b_by = bound(R * n * n * (3 * d + 3), 4 * (2 * n * d + R * (d + 2) + R * n * n))
+    bc_ms, _ = bound(R * m * n * (3 * d + 2), 4 * ((n + m) * d + 2 * R + R * m * n))
+    print(f"K1 R={R} n={n} d={d}: kernel {ms * 1e3:.3f} us by device time  plain "
+          f"{plain_ms * 1e3:.3f} us  cdist {lib_ms * 1e3:.3f} us  bound {b_ms * 1e3:.3f} us "
+          f"({b_by}); cross-Gram {m}x{n} {cross_ms * 1e3:.3f} us (bound {bc_ms * 1e3:.3f} us, "
+          f"plain {cross_plain_ms * 1e3:.3f} us, cdist {cross_lib_ms * 1e3:.3f} us)", flush=True)
+    return dict(shape=f"R={R} n={n} d={d}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, max_abs_err=err.max().item(),
+                cross_shape=f"R={R} {m}x{n} d={d}", cross_ms=cross_ms, cross_bound_ms=bc_ms,
+                cross_plain_ms=cross_plain_ms, cross_library_ms=cross_lib_ms,
+                cross_max_abs_err=err_c.max().item())
+
+
+def kron_timings(torch, device, report):
+    """Library calls and GEMM chains of the Kronecker path (no kernel of
+    the port; times only, by CUDA events): `torch.linalg.eigh` in float32
+    and the port's `eigh_pairs` (float64 inside) at (4, 1024), (1, 1024)
+    and (4, 256); one `jacobi_refine` sweep at (4, 1024);
+    the forward mode-product chain of hogp1024 (y of (1024, 32, 32, 32)
+    through the four eigenbases' transposes)."""
+    from fidelityfusion_tpu_torch.ops import kron, spectral
+    from fidelityfusion_tpu_torch.ops.gram import gram_plain
+
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    for R, n in ((4, 1024), (1, 1024), (4, 256)):
+        x = torch.rand((n, 4), generator=gen).to(device)
+        K = gram_plain(x, x, torch.full((R, 4), 2.0, device=device),
+                       torch.ones(R, device=device), torch.full((R,), 1e-2, device=device))
+        out[f"eigh R={R} n={n}"] = timed(lambda: torch.linalg.eigh(K), torch, max_iters=10)
+        out[f"eigh_pairs (float64) R={R} n={n}"] = timed(lambda: kron.eigh_pairs(K), torch,
+                                                         max_iters=10)
+        if (R, n) == (4, 1024):
+            _, V = torch.linalg.eigh(K)
+            K2 = K * 1.01 + 1e-3 * torch.eye(n, device=device)
+            out["jacobi_refine sweep R=4 n=1024"] = timed(
+                lambda: spectral.jacobi_refine(K2, V), torch)
+            w, V2, res = spectral.jacobi_refine(K2, V)
+            check(bool(torch.isfinite(w).all()) and float(res.max()) < 0.1,
+                  f"jacobi_refine (4, 1024): finite, residual {float(res.max()):.3e} < 0.1")
+    y = torch.rand((1024, 32, 32, 32), generator=gen).to(device)
+    Vs = [torch.linalg.qr(torch.randn((d, d), generator=gen))[0].to(device)
+          for d in (1024, 32, 32, 32)]
+    out["mode-product chain (1024, 32, 32, 32)"] = timed(
+        lambda: kron.multi_mode_dot(y, [V.T for V in Vs]), torch)
+    for key, ms in out.items():
+        print(f"{key}: {ms:.4f} ms (CUDA events)", flush=True)
+    report["kron_timings"] = out
+
+
 def kernel_checks(torch, device, report):
     from fidelityfusion_tpu_torch.ops import gram as G
     from fidelityfusion_tpu_torch.ops.chol import (
@@ -265,6 +358,7 @@ def kernel_checks(torch, device, report):
           f"cross-Gram {n}x1000 {cross_ms * 1e3:.3f} us (bound {bc_ms * 1e3:.3f} us, plain "
           f"{cross_plain_ms * 1e3:.3f} us, cdist {cross_lib_ms * 1e3:.3f} us)", flush=True)
     report["gram"]["d2"] = gram_d2_checks(torch, device, gen, library_gram)
+    report["gram"]["d4"] = gram_d4_checks(torch, device, gen, library_gram)
 
     def chol_case(key, R, n, batched):
         x, inv_ls, sv, da = se_problem(torch, R, n, 1, gen, device)
@@ -806,6 +900,348 @@ def cascade_paths(torch, device, iters, report):
     report["cascade_rmse"] = rmse
 
 
+def plain_kron_nll(torch, hogp, params, x, y, y_var=None, dtype=None) -> float:
+    """A HOGP's exact NLML through the plain version of K1 and
+    `torch.linalg.eigh`, in ``dtype`` (float64: the reference for the
+    kernels' float32)."""
+    from fidelityfusion_tpu_torch.ops import kron
+    from fidelityfusion_tpu_torch.ops.gram import gram_plain
+    from fidelityfusion_tpu_torch.utils.tree import tree_map
+
+    dtype = dtype or torch.float64
+    p = tree_map(lambda a: a.to(dtype), params)
+    kp = p["kernel"]
+
+    def K(a, b, diag_add=None, yv=None):
+        inv_ls, sv = hogp.kernel.gram_args(kp, a.shape[1])
+        inv_ls = inv_ls.reshape(1, -1).expand(1, a.shape[1])
+        return gram_plain(a.to(dtype), b.to(dtype), inv_ls, sv.reshape(1), diag_add,
+                          None if yv is None else yv.to(dtype).reshape(1, -1))[0]
+
+    jit = torch.tensor([hogp.jitter], dtype=dtype, device=x.device)
+    Ks = [K(x, x, jit, y_var)] + [K(g, g) for g in hogp.grids(p)]
+    Kb, yb, nb = kron._batched(Ks, y.to(dtype), hogp.noise(p))
+    pairs = [kron.eigh_pairs(Km) for Km in Kb]
+    loss = kron._loss_and_saved([q[0] for q in pairs], [q[1] for q in pairs], yb, nb)[0]
+    return float(loss[0])
+
+
+def check_kron_nll(label, v_card, v32, v64, trained=None, tol=1e-3):
+    """A HOGP NLML through the kernels within ``tol`` of max(|NLML|, 1)
+    (element-normalized NLMLs are O(1)) of the plain float64 one (K1's
+    plain version and `torch.linalg.eigh` in float64); the plain float32
+    one is printed beside it: at hogp1024 the NLML moves by ~1e-3 with K_0's
+    float32 rounding alone."""
+    scale = max(abs(v64), 1.0)
+    rel64, rel32, plain64 = (abs(v_card - v64) / scale, abs(v_card - v32) / scale,
+                             abs(v32 - v64) / scale)
+    print(f"{label}: NLML kernels {v_card:.6f}  training "
+          f"{'-' if trained is None else f'{trained:.6f}'}  plain fp32 {v32:.6f}  plain fp64 "
+          f"{v64:.6f}  /max(|NLML|, 1): |kernels - fp64| {rel64:.3e}  |kernels - fp32| "
+          f"{rel32:.3e}  |plain fp32 - fp64| {plain64:.3e}", flush=True)
+    check(rel64 <= tol, f"{label}: NLML through K1 vs plain fp64 {rel64:.2e} (<= {tol:g} of "
+                        f"max(|NLML|, 1))")
+
+
+class ResidualProbe:
+    """Wraps a HOGP spec's `nll_tracked` to keep the running max of the
+    tracking residual over every restart and step (the trainer keeps it
+    per restart in its aux but returns only the winner's params)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.max_res = {}
+
+    def wrap(self, hogp, key):
+        import dataclasses
+
+        probe = self
+
+        @dataclasses.dataclass(frozen=True)
+        class Probed(type(hogp)):
+            def nll_tracked(self, *args, **kwargs):
+                loss, aux = super().nll_tracked(*args, **kwargs)
+                prev = probe.max_res.get(key)
+                cur = aux[1].detach().max()
+                probe.max_res[key] = cur if prev is None else probe.torch.maximum(prev, cur)
+                return loss, aux
+
+        return Probed(**{f.name: getattr(hogp, f.name) for f in dataclasses.fields(hogp)})
+
+
+def hogp1024_path(torch, device, report, steps=130):
+    """The JAX bench's shipping HOGP shape (`bench.py:_hogp_setup`, `:483`):
+    n = 1024, output (32, 32, 32), SE kernel, inputs and targets from a
+    numpy seed; `fit` through `nll_tracked(refresh_every=64)` with the
+    tracking aux for ``steps`` Adam steps at lr 1e-2 (refreshes at 0, 64,
+    128).  Checks max_res < 0.30, the final tracked loss within 1e-2 of the
+    exact `nll` at the same params, and `nll` within 1e-3 of max(|NLML|, 1)
+    of the plain float64 recomputation (`check_kron_nll`)."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.models.hogp import HOGP
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.ops.kernels import SquaredExponentialKernel
+    from fidelityfusion_tpu_torch.train.fit import fit
+
+    n, shape = 1024, (32, 32, 32)
+    rng = np.random.default_rng(0)
+    x = rng.random((n, 4)).astype(np.float32)
+    base = np.sin(2 * np.pi * x.sum(axis=1)).astype(np.float32)
+    y = base.reshape((n, 1, 1, 1)) * rng.random(shape).astype(np.float32)
+    x, y = torch.as_tensor(x, device=device), torch.as_tensor(y, device=device)
+    hogp = HOGP(kernel=SquaredExponentialKernel(), output_shape=shape)
+    p0 = hogp.init_params(4, device=device)
+    stamps, last_aux = [], {}
+
+    def loss(p, aux, step, x, y):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        out = hogp.nll_tracked(p, aux, step, x, y, refresh_every=64)
+        last_aux["aux"] = out[1]
+        return out
+
+    cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fit(loss, p0, steps=steps, lr=1e-2, loss_args=(x, y),
+              aux0=hogp.tracking_aux0(n, device=device))
+    losses = res.losses.cpu()
+    sec = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = cuda.launch_counts()
+    step_ms = np.diff(np.asarray(stamps)) * 1e3  # step i: stamps[i] -> stamps[i + 1]
+    refresh_ms = {i: float(step_ms[i]) for i in (0, 64, 128) if i < len(step_ms)}
+    tracked_ms = float(np.median([step_ms[i] for i in range(1, len(step_ms)) if i % 64]))
+    max_res = float(last_aux["aux"][1])
+    with torch.no_grad():
+        exact = float(hogp.nll(res.params, x, y))
+        v32 = plain_kron_nll(torch, hogp, res.params, x, y, dtype=torch.float32)
+        v64 = plain_kron_nll(torch, hogp, res.params, x, y)
+    print(f"hogp1024: {steps} steps in {sec:.3f} s ({sec / steps * 1e3:.2f} ms/step overall; "
+          f"median tracked step {tracked_ms:.2f} ms; refresh steps {refresh_ms} ms, step 0 "
+          f"with warm-up); NLML {losses[0]:.6f} -> {losses[-1]:.6f}; max_res {max_res:.4f}; "
+          f"peak memory {peak:.3f} GiB; launches {counts}", flush=True)
+    print(f"peak memory hogp1024 (torch.cuda.max_memory_allocated): {peak:.3f} GiB", flush=True)
+    check(bool(torch.isfinite(losses).all()) and losses[-1] < losses[0],
+          "hogp1024: losses finite and falling")
+    check(max_res < 0.30, f"hogp1024: max tracking residual {max_res:.4f} < 0.30")
+    dv = abs(float(losses[-1]) - exact)
+    check(dv <= 1e-2, f"hogp1024: final tracked loss {float(losses[-1]):.6f} vs exact nll "
+                      f"{exact:.6f} at the same params: {dv:.2e} (<= 1e-2)")
+    check_kron_nll("hogp1024", exact, v32, v64)
+    report["launches_by_path"]["HOGP"] = counts
+    report["kron"]["HOGP"] = dict(ms_per_step=sec / steps * 1e3, tracked_step_ms=tracked_ms,
+                                  refresh_step_ms=refresh_ms, max_res=max_res, peak_gib=peak,
+                                  final_nll=exact, plain32_nll=v32, plain64_nll=v64)
+
+
+def field_setup(device, flat=False):
+    """The Kronecker path's data: Poisson fields at resolutions (8, 16, 32)
+    (`generate_poisson_mf_dataset`'s default), d_in = 4, 1152 samples from
+    seed 0; nested training rows `SIZES` (fidelity i on the first SIZES[i]
+    samples), the last 128 samples the test set.  (data manager, shapes,
+    x_test, top-fidelity test fields)."""
+    from fidelityfusion_tpu_torch.data.pde import generate_poisson_mf_dataset
+    from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager
+
+    x, ys = generate_poisson_mf_dataset(n_samples=SIZES[0] + 128, d_in=4, seed=0)
+    shapes = [f.shape[1:] for f in ys]
+    ys = [f.reshape(len(f), -1) for f in ys] if flat else ys
+    dm = MultiFidelityDataManager([
+        {"raw_fidelity_name": str(i), "fidelity_indicator": i, "X": x[:n], "Y": ys[i][:n]}
+        for i, n in enumerate(SIZES)])
+    return dm, shapes, x[SIZES[0]:], ys[-1][SIZES[0]:]
+
+
+def field_metrics(label, mean, truth):
+    import numpy as np
+
+    mean = mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean - truth) ** 2)))
+    rel = float(np.linalg.norm(mean - truth) / np.linalg.norm(truth))
+    print(f"{label}: test RMSE {rmse:.6f}  relative L2 error {rel:.5f} against the top "
+          f"fields", flush=True)
+    check(bool(np.isfinite(mean).all()) and mean.shape == truth.shape,
+          f"{label} forward: finite mean of shape {truth.shape}")
+    check(rel < 0.6, f"{label}: relative error {rel:.5f} < 0.6")
+    return rmse, rel
+
+
+class LaunchClock(StageClock):
+    """`StageClock` that also keeps the launch counts as each stage ends."""
+
+    def __init__(self, torch, model=None):
+        super().__init__(torch, model)
+        self.counts = []
+
+    def record_stage(self, i, hist):
+        from fidelityfusion_tpu_torch.ops import cuda
+
+        super().record_stage(i, hist)
+        self.counts.append(cuda.launch_counts())
+
+
+def _stage_launches(clock):
+    prev, out = {}, []
+    for c in clock.counts:
+        out.append({k: v - prev.get(k, 0) for k, v in c.items()})
+        prev = c
+    return out
+
+
+def gar_path(torch, device, iters, report):
+    """GAR, the slice's main path: `train_GAR` over ARD HOGPs with 4
+    restarts at lr 5e-2 on `field_setup`'s data (stages 0 and 1 through
+    the tracked spectrum, stage 2 exact eigh every step), then `forward` on
+    the 128 test samples; each stage's NLML through K1 within 1e-3 of
+    max(|NLML|, 1) of the plain float64 one (`check_kron_nll`), the
+    relative error < 0.6."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.models.gar import GAR, train_GAR
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
+    from fidelityfusion_tpu_torch.train.fit import restart_scores
+
+    dm, shapes, x_test, truth = field_setup(device)
+    model = GAR(3, [ARDKernel() for _ in range(3)], shapes, input_dim=4, device=device)
+    probe = ResidualProbe(torch)
+    model.hogp_list = [probe.wrap(h, i) for i, h in enumerate(model.hogp_list)]
+    cuda.reset_launch_counts()
+    clock = LaunchClock(torch, model)
+    hists = train_GAR(model, dm, max_iter=iters, lr_init=5e-2, n_restarts=4, debugger=clock)
+    with torch.no_grad():
+        mean, var = model.forward(dm, x_test)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    per_stage = _stage_launches(clock)
+    stages = []
+    for i, h in enumerate(hists):
+        score = restart_scores(h)
+        best = int(np.argmin(score))
+        x, y, y_var = model._stage_train_data(dm, i)
+        p = clock.params[i]["hogp"][i]
+        with torch.no_grad():
+            v_card = float(model.hogp_list[i].nll(p, x, y, y_var))
+        v32 = plain_kron_nll(torch, model.hogp_list[i], p, x, y, y_var, dtype=torch.float32)
+        v64 = plain_kron_nll(torch, model.hogp_list[i], p, x, y, y_var)
+        res = probe.max_res.get(i)
+        res = None if res is None else float(res)
+        ms = clock.seconds[i] / iters * 1e3
+        print(f"GAR stage {i}: rows {SIZES[i]} output {shapes[i]}  "
+              f"{'tracked' if res is not None else 'exact eigh'}  final NLML {score[best]:.6f}  "
+              f"chosen restart {best}  scores {np.round(score, 5).tolist()}  wall "
+              f"{clock.seconds[i]:.3f} s ({ms:.2f} ms/step)  max_res "
+              f"{'-' if res is None else f'{res:.4f}'}  K1 launches "
+              f"{per_stage[i].get('gram', 0)}", flush=True)
+        check(bool(np.isfinite(score[best])), f"GAR stage {i} final NLML finite")
+        check_kron_nll(f"GAR stage {i}", v_card, v32, v64, float(score[best]))
+        stages.append(dict(rows=SIZES[i], ms_per_step=ms, seconds=clock.seconds[i], max_res=res,
+                           launches=per_stage[i], final_nll=v_card, plain32_nll=v32,
+                           plain64_nll=v64))
+    check(probe.max_res.keys() == {0, 1}, f"GAR: stages 0 and 1 tracked, stage 2 exact "
+                                          f"({sorted(probe.max_res)})")
+    check(bool((var > 0).all()), "GAR forward: variances > 0")
+    rmse, rel = field_metrics("GAR", mean, truth)
+    cascade_launches("GAR", ("gram",), counts)
+    report["launches_by_path"]["GAR"] = counts
+    report["kron"]["GAR"] = dict(stages=stages, rmse=rmse, rel_err=rel)
+
+
+def cigar_path(torch, device, iters, report):
+    """CIGAR on the same data and settings (outputs flattened): each
+    stage's NLML held against the plain versions as the cascades' are;
+    K1, K2, K3a and K3b all launched."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.models.cigar import CIGAR, train_CIGAR
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
+    from fidelityfusion_tpu_torch.train.fit import restart_scores
+
+    dm, shapes, x_test, truth = field_setup(device, flat=True)
+    model = CIGAR(3, [ARDKernel() for _ in range(3)], shapes, input_dim=4, device=device)
+    cuda.reset_launch_counts()
+    clock = LaunchClock(torch, model)
+    hists = train_CIGAR(model, dm, max_iter=iters, lr_init=5e-2, n_restarts=4, debugger=clock)
+    with torch.no_grad():
+        mean, var = model.forward(dm, x_test)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    per_stage = _stage_launches(clock)
+    stages = []
+    for i, h in enumerate(hists):
+        score = restart_scores(h)
+        best = int(np.argmin(score))
+        x, y, _ = _stage_data(torch, dm, "CIGAR", i, device)
+        y = y.reshape(len(y), -1)
+        gp, p = model.gp_list[i], clock.params[i]["gp"][i]
+        with torch.no_grad():
+            v_card = float(gp.nll(p, x, y))
+        ms = clock.seconds[i] / iters * 1e3
+        print(f"CIGAR stage {i}: rows {SIZES[i]} columns {y.shape[1]}  final NLML "
+              f"{score[best]:.4f}  chosen restart {best}  wall {clock.seconds[i]:.3f} s "
+              f"({ms:.2f} ms/step)  launches {per_stage[i]}", flush=True)
+        check(bool(np.isfinite(score[best])), f"CIGAR stage {i} final NLML finite")
+        check_stage_nll(torch, f"CIGAR stage {i}", v_card,
+                        plain_stage_nll(torch, gp, p, x, y, torch.float32),
+                        plain_stage_nll(torch, gp, p, x, y, torch.float64),
+                        float(score[best]), x.shape[0])
+        stages.append(dict(rows=SIZES[i], ms_per_step=ms, seconds=clock.seconds[i],
+                           launches=per_stage[i]))
+    check(bool((var > 0).all()), "CIGAR forward: variances > 0")
+    rmse, rel = field_metrics("CIGAR", mean, truth.reshape(len(truth), -1))
+    cascade_launches("CIGAR", ("gram", "chol", "chol_batched", "tri_inv"), counts)
+    print(f"CIGAR launches {counts}", flush=True)
+    report["launches_by_path"]["CIGAR"] = counts
+    report["kron"]["CIGAR"] = dict(stages=stages, rmse=rmse, rel_err=rel)
+
+
+def kron_nan_isolation(torch, device):
+    """A 4-restart HOGP batch (n = 512, output (16, 16), ARD with a dim-1
+    length scale against d = 4) whose restart 2 has NaN parameters:
+    `nll` is NaN for that restart only and raises nothing (cuSOLVER's
+    ``eigh`` never sees the NaN Gram), and a 5-step `fit_restarts` returns
+    finite params of another restart."""
+    from fidelityfusion_tpu_torch.models.hogp import HOGP
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
+    from fidelityfusion_tpu_torch.train.fit import fit_restarts, stack_params
+    from fidelityfusion_tpu_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator().manual_seed(13)
+    x = torch.rand((512, 4), generator=gen).to(device)
+    y = torch.randn((512, 16, 16), generator=gen).to(device)
+    hogp = HOGP(ARDKernel(), (16, 16))
+    p = hogp.init_params(4, device=device)
+    batch = stack_params([p] * 4)
+    batch["kernel"]["length_scales"] = torch.tensor([[1.0], [0.5], [float("nan")], [2.0]],
+                                                    device=device)
+    with torch.no_grad():
+        v = hogp.nll(batch, x, y).cpu()
+    ok = bool(torch.isnan(v[2])) and bool(torch.isfinite(v[[0, 1, 3]]).all())
+    best, res = fit_restarts(hogp.nll, batch, steps=5, lr=5e-2, loss_args=(x, y))
+    fin = all(bool(torch.isfinite(a).all()) for a in tree_leaves(best))
+    print(f"NaN isolation: nll per restart {v.tolist()}; 5-step fit_restarts losses "
+          f"{res.losses[:, -1].cpu().tolist()}", flush=True)
+    check(ok and fin, "NaN isolation on the Kronecker path: NaN for restart 2 only, no "
+                      "exception, fit_restarts returns finite params")
+
+
+def kron_paths(torch, device, iters, report):
+    """Phase 5: the Kronecker path, each driven with the launch counts set
+    to 0 just before it and read just after."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "Kronecker phase: TF32 off (allow_tf32 False, float32_matmul_precision highest)")
+    report["kron"] = {}
+    hogp1024_path(torch, device, report)
+    gar_path(torch, device, iters, report)
+    cigar_path(torch, device, iters, report)
+    kron_nan_isolation(torch, device)
+
+
 def unbatched_paths(torch, device):
     """20-step SE and ARD CIGP fits at n = 2048; returns ms/step of each."""
     from fidelityfusion_tpu_torch.demo import _toy_3fid
@@ -845,6 +1281,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
@@ -876,12 +1313,16 @@ def main(argv=None) -> int:
 
     report = {}
     kernel_checks(torch, device, report)
+    kron_timings(torch, device, report)
     ill_conditioned_checks(torch, device)
     nan_pivot_check(torch, device)
     main_path(torch, device, args.iters, report)
     cascade_paths(torch, device, args.iters, report)
+    kron_paths(torch, device, args.iters, report)
     unbatched_paths(torch, device)
     count_device_ops(torch, device, report)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the last phase",
+          flush=True)
 
     counts = report["main_counts"]
     kernels = []
@@ -894,7 +1335,7 @@ def main(argv=None) -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_by_path") + tuple(
             f for f in ("timing", "call_ms", "cross_ms", "cross_bound_ms", "cross_plain_ms",
-                        "cross_library_ms", "cross_max_abs_err", "d2", "leaf_us",
+                        "cross_library_ms", "cross_max_abs_err", "d2", "d4", "leaf_us",
                         "device_ops_per_call", "shapes") if f in k)})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

@@ -18,7 +18,8 @@
 // masked.  Two paths:
 //   * the d of the port's callers (d = 1: the main path, the unbatched
 //     fits and every other cascade's stages; d = 2: NAR's stages i >= 1,
-//     whose input is [x, y_low]): templated on d, no shared memory and no
+//     whose input is [x, y_low]; d = 4: the Poisson source parameters of
+//     every HOGP, GAR and CIGAR stage): templated on d, no shared memory and no
 //     barrier; a caller with another small d adds its instantiation in
 //     ff_gram.  A CTA of 256 threads owns 32 x 128 output tiles in turn
 //     (a grid of one wave, 8 CTAs per SM, or one CTA a tile if fewer); a
@@ -193,6 +194,9 @@ extern "C" int ff_gram(const float* x1, const float* x2, const float* inv_ls,
   if (d == 2)
     return static_cast<int>(
         launch_small_d<2>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
+  if (d == 4)
+    return static_cast<int>(
+        launch_small_d<4>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
   dim3 grid((n2 + T - 1) / T, (n1 + T - 1) / T, B);
   dim3 block(T, 8);
   gram_kernel<<<grid, block, 0, st>>>(x1, x2, inv_ls, sv, diag_add, y_var, out, n1, n2, d);

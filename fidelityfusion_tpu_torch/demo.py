@@ -1,16 +1,19 @@
-"""CLI demo: train a model end to end on the 3-fidelity toy sin.
+"""CLI demo: train a model end to end.
 
-Port of `fidelityfusion_tpu/demo.py` for the vector models (GAR, HOGP and
-CIGAR are not ported yet):
+Port of `fidelityfusion_tpu/demo.py`:
 
     python -m fidelityfusion_tpu_torch.demo MODEL [--nonsubset] [--device cpu]
 
-MODEL in {AR, NAR, ResGP, CAR, CAR_large, CIGP, FIDES}.  The cascades
-train on the three fidelities; CIGP and FIDES fit the top fidelity alone.
+MODEL in {AR, NAR, ResGP, CAR, CAR_large, CIGP, FIDES, GAR, HOGP, CIGAR}.
+The vector models run on the 3-fidelity toy sin: the cascades train on
+the three fidelities, CIGP and FIDES fit the top fidelity alone, and
 ``--nonsubset`` (AR, NAR, ResGP) draws each fidelity's inputs
-independently and trains through the imputation path.  Runs on the card
-by default; ``--device cpu`` runs the plain PyTorch versions of the
-kernels.  Prints r2 / rmse / nll / nrmse against sin(x).
+independently and trains through the imputation path.  GAR, HOGP and
+CIGAR run on 64 Poisson source fields (`data/pde.py`, resolutions (8, 12,
+16), d_in = 4), 48 training rows: GAR and CIGAR over the three
+fidelities, HOGP on the top one.  Runs on the card by default; ``--device
+cpu`` runs the plain PyTorch versions of the kernels.  Prints r2 / rmse /
+nll / nrmse on the held-out rows.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ def _toy_3fid(seed=1, nonsubset=False, sizes=(300, 300, 250), pool=500,
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("model", choices=["AR", "NAR", "ResGP", "CAR", "CAR_large", "CIGP",
-                                          "FIDES"])
+                                          "FIDES", "GAR", "HOGP", "CIGAR"])
     parser.add_argument("--iters", type=int, default=200)
     parser.add_argument("--lr", type=float, default=5e-2)
     parser.add_argument("--restarts", type=int, default=4)
@@ -72,12 +75,15 @@ def main(argv=None):
 
     t0 = time.time()
     device = resolve_device(args.device)
-    sizes = (300, 200, 150) if args.nonsubset else (300, 300, 250)
-    xs, ys, x_test, y_test = _toy_3fid(nonsubset=args.nonsubset, sizes=sizes)
-    if name in ("CIGP", "FIDES"):
-        mean, var = _single_fidelity(name, xs[-1], ys[-1], x_test, args, device)
+    if name in ("GAR", "HOGP", "CIGAR"):
+        y_test, mean, var = _field(name, args, device)
     else:
-        mean, var = _cascade(name, xs, ys, x_test, args, device)
+        sizes = (300, 200, 150) if args.nonsubset else (300, 300, 250)
+        xs, ys, x_test, y_test = _toy_3fid(nonsubset=args.nonsubset, sizes=sizes)
+        if name in ("CIGP", "FIDES"):
+            mean, var = _single_fidelity(name, xs[-1], ys[-1], x_test, args, device)
+        else:
+            mean, var = _cascade(name, xs, ys, x_test, args, device)
     m = calculate_metrix(y_test, mean, var)
     m = {k: round(float(v), 5) for k, v in m.items()}
     print(f"{name}: {m} ({time.time() - t0:.1f}s)")
@@ -113,6 +119,46 @@ def _cascade(name, xs, ys, x_test, args, device):
         train_CAR_large(model, dm, **fit_args)
     mean, cov = model.forward(dm, x_test)
     return mean.detach().cpu().numpy(), np.diagonal(cov.detach().cpu().numpy())
+
+
+def _field(name, args, device, n_tr=48):
+    """Train GAR or CIGAR on three Poisson fidelities, or HOGP on the top
+    one (standardized), over the first ``n_tr`` samples; (test fields of
+    the top fidelity, raw-space mean, variance)."""
+    from fidelityfusion_tpu_torch.data.pde import generate_poisson_mf_dataset
+    from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
+
+    x, ys = generate_poisson_mf_dataset(n_samples=64, resolutions=(8, 12, 16), d_in=4, seed=0)
+    if name == "HOGP":
+        from fidelityfusion_tpu_torch.models.hogp import HOGP
+        from fidelityfusion_tpu_torch.train.fit import fit
+
+        y = ys[-1]
+        ym, ysd, xm, xsd = y.mean(), y.std(), x.mean(0), x.std(0)
+        as_t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+        xn, yn = as_t((x - xm) / xsd), as_t((y - ym) / ysd)
+        hogp = HOGP(kernel=ARDKernel(), output_shape=y.shape[1:])
+        res = fit(hogp.nll, hogp.init_params(x.shape[1], device=device), steps=args.iters,
+                  lr=args.lr, loss_args=(xn[:n_tr], yn[:n_tr]))
+        with torch.no_grad():
+            _, state = hogp.nll_with_state(res.params, xn[:n_tr], yn[:n_tr])
+            mean, var = hogp.predict(res.params, state, xn[:n_tr], xn[n_tr:])
+        return (y[n_tr:], mean.cpu().numpy() * ysd + ym, var.cpu().numpy() * ysd ** 2)
+    from fidelityfusion_tpu_torch.models.cigar import CIGAR, train_CIGAR
+    from fidelityfusion_tpu_torch.models.gar import GAR, train_GAR
+
+    shapes = [f.shape[1:] for f in ys]
+    ys_use = [f.reshape(len(f), -1) for f in ys] if name == "CIGAR" else ys
+    dm = MultiFidelityDataManager([
+        {"raw_fidelity_name": str(i), "fidelity_indicator": i, "X": x[:n_tr], "Y": y[:n_tr]}
+        for i, y in enumerate(ys_use)])
+    cls, train = (GAR, train_GAR) if name == "GAR" else (CIGAR, train_CIGAR)
+    model = cls(3, [ARDKernel()] * 3, shapes, input_dim=x.shape[1], device=device)
+    train(model, dm, max_iter=args.iters, lr_init=args.lr, n_restarts=args.restarts)
+    with torch.no_grad():
+        mean, var = model.forward(dm, x[n_tr:])
+    return ys_use[-1][n_tr:], mean.cpu().numpy(), var.cpu().numpy()
 
 
 def _single_fidelity(name, x, y, x_test, args, device):

@@ -37,6 +37,7 @@ from fidelityfusion_tpu_torch.train.fit import (
     stack_params,
 )
 from fidelityfusion_tpu_torch.utils.device import resolve_device
+from fidelityfusion_tpu_torch.utils.tree import tree_map
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -129,7 +130,8 @@ def train_AR(model: AR, data_manager: MultiFidelityDataManager,
     fidelity-0 data; stage i >= 1 fits the residual GP on
     ``y_hi - rho_i * y_lo`` over the subset (or the imputed non-subset fill
     data with variance targets).  Returns the per-stage loss histories,
-    ``(n_restarts, max_iter)`` each (``(max_iter,)`` without restarts)."""
+    ``(n_restarts, max_iter)`` each (``(max_iter,)`` without restarts).
+    No ``n_mesh`` argument: the n-axis-sharded stages are not ported yet."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []
@@ -333,14 +335,18 @@ def _blocked_variant(loss_fn, n_rows: int):
 
 
 def _run_stage(loss_fn, params, steps, lr, n_restarts, generator,
-               kernel_spec=None, x=None, gp_field=None, loss_args=None):
+               kernel_spec=None, x=None, gp_field=None, loss_args=None, aux0=None):
     """One stage's Adam fit; with restarts, over the deterministic
     length-scale ladder applied to the GP subtree (``params[gp_field]`` or
-    ``params``), else random jitter from ``generator``."""
+    ``params``), else random jitter from ``generator``.
+
+    ``aux0``: one (unbatched) aux carry for an aux-threading loss (the HOGP
+    tracked eigenbasis), broadcast over the restarts here.  Aux losses
+    bypass `_blocked_variant` (it swaps CIGP losses only)."""
     if n_restarts <= 1:
-        result = fit(loss_fn, params, steps=steps, lr=lr, loss_args=loss_args)
+        result = fit(loss_fn, params, steps=steps, lr=lr, loss_args=loss_args, aux0=aux0)
         return result.params, result.losses
-    if x is not None:
+    if x is not None and aux0 is None:
         loss_fn = _blocked_variant(loss_fn, x.shape[0])
     if kernel_spec is not None and x is not None:
         gp_params = params[gp_field] if gp_field else params
@@ -349,7 +355,10 @@ def _run_stage(loss_fn, params, steps, lr, n_restarts, generator,
         batch = stack_params(inits)
     else:
         batch = perturb_params(generator, params, n=n_restarts)
-    best, result = fit_restarts(loss_fn, batch, steps=steps, lr=lr, loss_args=loss_args)
+    aux_batch = None if aux0 is None else tree_map(
+        lambda a: a.expand((n_restarts,) + a.shape), aux0)
+    best, result = fit_restarts(loss_fn, batch, steps=steps, lr=lr, loss_args=loss_args,
+                                aux0=aux_batch)
     return best, result.losses
 
 

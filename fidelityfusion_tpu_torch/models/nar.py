@@ -140,7 +140,8 @@ def train_NAR(model: NAR, data_manager: MultiFidelityDataManager,
     y_low]`` to ``y_high`` (non-subset: the imputed ``y_low`` and
     ``y_high``'s variance as ``y_var``) and registers that training set as
     ``concat-i`` for the cascade.  Returns the per-stage loss histories,
-    as `train_AR`."""
+    as `train_AR`.
+    No ``n_mesh`` argument: the n-axis-sharded stages are not ported yet."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []

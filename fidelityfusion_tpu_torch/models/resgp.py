@@ -88,7 +88,8 @@ def train_ResGP(model: ResGP, data_manager: MultiFidelityDataManager,
     """Sequential per-fidelity training: stage i >= 1 fits the standardized
     residual ``y_hi - y_lo`` on the overlap (subset) or on the imputed
     mean, with variance ``|var_hi - var_lo|`` (non-subset).  Returns the
-    per-stage loss histories, as `train_AR`."""
+    per-stage loss histories, as `train_AR`.
+    No ``n_mesh`` argument: the n-axis-sharded stages are not ported yet."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []

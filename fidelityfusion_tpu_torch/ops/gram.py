@@ -4,8 +4,9 @@
                      + (i == j) * (diag_add + y_var[i])
 
 ``x1 (n1, d)`` and ``x2 (n2, d)`` are shared by every restart; ``inv_ls
-(*batch, d)``, ``sv (*batch)``, ``diag_add (*batch)`` and ``y_var (*batch,
-n1)`` carry an optional leading batch (the restart axis).  The output is
+(*batch, d)`` (or ``(*batch, 1)``: one length scale for every dimension),
+``sv (*batch)``, ``diag_add (*batch)`` and ``y_var (*batch, n1)`` carry an
+optional leading batch (the restart axis).  The output is
 ``(*batch, n1, n2)``.  ``diag_add``/``y_var`` act on i == j, so they are for
 square training Grams; pass neither for a cross-Gram.
 
@@ -118,6 +119,10 @@ def gram(x1: torch.Tensor, x2: torch.Tensor, inv_ls: torch.Tensor,
     every argument."""
     batch = sv.shape
     B = sv.numel()
+    if inv_ls.shape[-1] == 1 and x1.shape[-1] != 1:
+        # one length scale for every input dimension (HOGP's shared kernel):
+        # expanded here, so its gradient is the sum over the d columns
+        inv_ls = inv_ls.expand(inv_ls.shape[:-1] + (x1.shape[-1],))
     args = [inv_ls.reshape(B, -1), sv.reshape(B)]
     args.append(None if diag_add is None
                 else diag_add.expand(batch).reshape(B))

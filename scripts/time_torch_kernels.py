@@ -11,7 +11,7 @@ and power limit, then:
 
 - by default, chip_smoke's phase 2 (`kernel_checks`): every kernel against
   its plain version, timed beside its bound, plain version and library
-  call (K1 and K3b by device time from CUDA graphs), K1 at d = 1 and 2,
+  call (K1 and K3b by device time from CUDA graphs), K1 at d = 1, 2 and 4,
   K2 at n = 1024/1792/2048, K3b at R=4, n=256/512/1024 and R=1,
   n=1792/2048; the last line is a JSON object of the kernels' ms;
 - with ``--steps``, whole training steps, with no CUDA graph and no
@@ -39,8 +39,10 @@ def kernel_times(torch, smoke, device, root) -> int:
     smoke.kernel_checks(torch, device, report)
     ms = {key: {row["shape"]: row["ms"] for row in report[key].get("shapes", [report[key]])}
           for key in report}
-    d2 = report["gram"]["d2"]
-    ms["gram"][d2["shape"]] = d2["ms"]
+    for key in ("d2", "d4"):
+        row = report["gram"][key]
+        ms["gram"][row["shape"]] = row["ms"]
+    ms["gram"][report["gram"]["d4"]["cross_shape"]] = report["gram"]["d4"]["cross_ms"]
     print(json.dumps({"root": str(root), "ms": ms, "failures": len(smoke.FAILURES)}), flush=True)
     return 1 if smoke.FAILURES else 0
 

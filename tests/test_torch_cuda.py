@@ -66,6 +66,63 @@ def test_gram_kernel_at_nar_stage_shape(dev):
     assert (got.diagonal(dim1=1, dim2=2) == sv[:, None] + da[:, None] + yv).all()
 
 
+def test_gram_kernel_at_kronecker_shape_with_dim1_length_scale(dev):
+    """The HOGP K_0 of the Kronecker path: 4 restarts, n = 1024, d = 4 (the
+    Poisson source parameters) on the register path, one ARD length scale
+    per restart broadcast over the four inputs, the jitter nugget and
+    y_var; the diagonal exact; the scale's gradient the sum over d of the
+    repeated scale's (the wrapper's differentiable expand)."""
+    from fidelityfusion_tpu_torch.ops.gram import gram, gram_plain
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((1024, 4), generator=g).to(dev)
+    inv_ls = (torch.rand((4, 1), generator=g) + 0.5).to(dev).requires_grad_(True)
+    sv = torch.tensor([0.5, 1.0, 1.5, 2.0], device=dev)
+    da = torch.full((4,), 1e-6, device=dev)
+    yv = (0.01 * torch.rand((4, 1024), generator=g)).to(dev)
+    got = gram(x, x, inv_ls, sv, diag_add=da, y_var=yv)
+    torch.cuda.synchronize()
+    want = gram_plain(x, x, inv_ls.detach().expand(4, 4), sv, da, yv)
+    torch.testing.assert_close(got.detach(), want, rtol=1e-4, atol=1e-5)
+    assert (got.diagonal(dim1=1, dim2=2) == sv[:, None] + da[:, None] + yv).all()
+    w = torch.randn((1024, 1024), generator=g).to(dev)
+    (got * w).sum().backward()
+    rep = inv_ls.detach().expand(4, 4).clone().requires_grad_(True)
+    (gram_plain(x, x, rep, sv, da, yv) * w).sum().backward()
+    torch.testing.assert_close(inv_ls.grad[:, 0], rep.grad.sum(1), rtol=1e-3, atol=1e-3)
+
+
+def test_kron_nlml_isolates_a_nan_restart_on_the_card(dev):
+    """A NaN in one restart's K_0: cuSOLVER's eigh never sees it (the port
+    swaps it for the identity), the loss is NaN for that restart only and
+    no exception is raised; the other restarts' values and gradients as on
+    the CPU."""
+    from fidelityfusion_tpu_torch.ops.kron import kron_nlml
+
+    g = torch.Generator().manual_seed(5)
+
+    def spd(R, n):
+        a = torch.randn((R, n, n), generator=g, dtype=torch.float64)
+        return (a @ a.transpose(1, 2) / n + torch.eye(n, dtype=torch.float64)).float()
+
+    Ks = [spd(4, 256), spd(4, 16), spd(4, 16)]
+    Ks[0][2, 3, 5] = float("nan")
+    y = torch.randn((256, 16, 16), generator=g)
+    noise = torch.full((4,), 0.1)
+    cpu = [K.clone().requires_grad_(True) for K in Ks]
+    v_cpu = kron_nlml(cpu, y, noise)
+    v_cpu[[0, 1, 3]].sum().backward()
+    card = [K.to(dev).requires_grad_(True) for K in Ks]
+    v = kron_nlml(card, y.to(dev), noise.to(dev))
+    v[[0, 1, 3]].sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isnan(v[2]) and torch.isfinite(v[[0, 1, 3]]).all()
+    torch.testing.assert_close(v.cpu()[[0, 1, 3]], v_cpu.detach()[[0, 1, 3]], rtol=1e-4, atol=0)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.grad.cpu()[[0, 1, 3]], b.grad[[0, 1, 3]], rtol=1e-3,
+                                   atol=1e-5)
+
+
 @pytest.mark.parametrize("d", [1, 3, 40])
 def test_gram_kernel_diagonal_is_exact(dev, d):
     """x1 is x2: the diagonal is sv + diag_add exactly, in every tile."""

@@ -1,0 +1,249 @@
+"""The port's HOGP (`models/hogp.py`) and coupling (`models/coupling.py`)
+against the JAX package on the CPU, the same parameters carried across
+with `convert.params_from_numpy`.
+
+Tolerances (float32, two ``eigh`` implementations): NLML values rtol 1e-5;
+gradients rtol 1e-3 (JAX's own custom-VJP accuracy class on these
+fixtures); posterior means and variances within 1e-4 of their scale;
+the lifts and the interpolation matrix to 1e-6; a restart batch equal to
+per-restart calls to 1e-5."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fidelityfusion_tpu.models.coupling import TensorLinear as JTL
+from fidelityfusion_tpu.models.coupling import interp_identity as j_interp
+from fidelityfusion_tpu.models.hogp import HOGP as JHOGP
+from fidelityfusion_tpu.ops import kernels as JK
+from fidelityfusion_tpu_torch.convert import params_from_numpy
+from fidelityfusion_tpu_torch.models.coupling import TensorLinear, interp_identity
+from fidelityfusion_tpu_torch.models.hogp import HOGP
+from fidelityfusion_tpu_torch.ops import kernels as TK
+from fidelityfusion_tpu_torch.train.fit import adam_scan, adam_scan_aux
+from fidelityfusion_tpu_torch.utils.tree import tree_leaves, tree_map
+from tests.torch_port_checks import leaves
+
+KERNELS = {"ARD": (JK.ARDKernel, TK.ARDKernel), "SE": (JK.SquaredExponentialKernel,
+                                                       TK.SquaredExponentialKernel)}
+
+
+def _case(kernel, learnable=False, seed=5, n=12, shape=(4, 3), d=4):
+    """Inputs (d = 4: the Poisson source parameters, a dim-1 length scale
+    broadcast over them for ARD) and perturbed JAX parameters as numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, d)).astype(np.float32)
+    y = rng.standard_normal((n,) + shape).astype(np.float32)
+    yv = (0.1 * rng.random(n)).astype(np.float32)
+    xt = rng.random((5, d)).astype(np.float32)
+    jk, tk = KERNELS[kernel]
+    flags = dict(learnable_grid=learnable, learnable_map=learnable)
+    jh, th = JHOGP(jk(), shape, **flags), HOGP(tk(), shape, **flags)
+    p = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) * (1 + 0.1 * rng.standard_normal(np.shape(a))).astype(np.float32),
+        jh.init_params(d))
+    p["noise_variance"] = np.array([20.0], np.float32)
+    return jh, th, p, x, y, yv, xt
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.tensor(a)
+
+
+@pytest.mark.parametrize("kernel,learnable,with_yvar", [
+    ("ARD", False, False), ("ARD", False, True), ("SE", False, True), ("ARD", True, False)])
+def test_nll_value_and_gradients_match_jax(kernel, learnable, with_yvar):
+    """`nll` (the custom backward) and `nll_with_state` against JAX's
+    `nll`, value and every parameter's gradient, learnable grids and maps
+    included."""
+    jh, th, p, x, y, yv, _ = _case(kernel, learnable)
+    yv = yv if with_yvar else None
+    jv, jg = jax.jit(jax.value_and_grad(lambda q, x, y, yv: jh.nll(q, x, y, yv)))(
+        jax.tree_util.tree_map(jnp.asarray, p), _j(x), _j(y), _j(yv))
+    tp = tree_map(lambda a: a.requires_grad_(True), params_from_numpy(p, "cpu"))
+    v = th.nll(tp, _t(x), _t(y), _t(yv))
+    v.backward()
+    np.testing.assert_allclose(v.item(), float(jv), rtol=1e-5)
+    np.testing.assert_allclose(th.nll_with_state(params_from_numpy(p, "cpu"), _t(x), _t(y),
+                                                 _t(yv))[0].item(), float(jv), rtol=1e-5)
+    for a, t in zip(leaves(jg), leaves(tp)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(a), rtol=1e-3,
+                                   atol=1e-3 * np.abs(np.asarray(a)).max() + 1e-6)
+
+
+@pytest.mark.parametrize("kernel,with_yvar,dtype", [
+    ("ARD", False, "float32"), ("ARD", True, "float32"), ("SE", False, "float64")])
+def test_predict_matches_jax(kernel, with_yvar, dtype):
+    """Posterior means and variances (float64 for the SE case: its Gram at
+    these parameters is nearly rank one, and two float32 ``eigh``s give
+    eigenvalue tensors that differ by ~1e-2 of the noise)."""
+    jh, th, p, x, y, yv, xt = _case(kernel)
+    yv = yv if with_yvar else None
+    cast = lambda a: None if a is None else np.asarray(a, dtype)  # noqa: E731
+    p, x, y, yv, xt = jax.tree_util.tree_map(cast, p), cast(x), cast(y), cast(yv), cast(xt)
+    with jax.enable_x64(dtype == "float64"):
+        jp = jax.tree_util.tree_map(jnp.asarray, p)
+
+        def run(jp, x, y, yv, xt):
+            _, jst = jh.nll_with_state(jp, x, y, yv)
+            return jh.predict(jp, jst, x, xt)
+
+        jm, jvar = (np.asarray(a) for a in jax.jit(run)(jp, _j(x), _j(y), _j(yv), _j(xt)))
+    tp = tree_map(lambda a: torch.tensor(a), p)
+    _, st = th.nll_with_state(tp, _t(x), _t(y), _t(yv))
+    m, var = th.predict(tp, st, _t(x), _t(xt))
+    tol = 1e-4 if dtype == "float32" else 1e-9
+    np.testing.assert_allclose(m.numpy(), jm, atol=tol * np.abs(jm).max())
+    np.testing.assert_allclose(var.numpy(), jvar, atol=tol * np.abs(jvar).max())
+    assert (var.numpy() > 0).all()
+
+
+def test_predict_matches_dense_posterior():
+    """Mean and variance against the dense Kronecker GP posterior in
+    float64 (the JAX package's `test_hogp_predict_matches_dense` bars)."""
+    rng = np.random.default_rng(1)
+    n, m, shape = 6, 3, (3, 2)
+    x, xt = rng.random((n, 2)).astype(np.float32), rng.random((m, 2)).astype(np.float32)
+    y = rng.standard_normal((n,) + shape).astype(np.float32)
+    th = HOGP(TK.ARDKernel(), shape, jitter=0.0)
+    p = th.init_params(2, device="cpu")
+    _, st = th.nll_with_state(p, _t(x), _t(y))
+    mean, var = th.predict(p, st, _t(x), _t(xt))
+    kp = p["kernel"]
+    K = lambda a, b: th.kernel.apply(kp, _t(a), _t(b)).double().numpy()  # noqa: E731
+    g = [gr.numpy() for gr in th.grids(p)]
+    Km = np.kron(K(g[0], g[0]), K(g[1], g[1]))
+    noise = float(th.noise(p))
+    Sigma = np.kron(K(x, x), Km) + noise * np.eye(n * 6)
+    Ks, Kss = np.kron(K(xt, x), Km), np.kron(K(xt, xt), Km)
+    mean_d = (Ks @ np.linalg.solve(Sigma, y.ravel().astype(np.float64))).reshape((m,) + shape)
+    var_d = np.diagonal(Kss - Ks @ np.linalg.solve(Sigma, Ks.T)).reshape((m,) + shape) + noise
+    np.testing.assert_allclose(mean.numpy(), mean_d, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(var.numpy(), var_d, rtol=1e-2, atol=1e-3)
+
+
+def test_tracked_nll_at_a_refresh_step_matches_jax():
+    """`nll_tracked` at step 0 (a refresh) is the exact NLML, as JAX's, and
+    its aux carries the eigenbasis and a zero residual; at a tracking step
+    from that basis the value agrees with JAX's to rtol 1e-5."""
+    jh, th, p, x, y, _, _ = _case("ARD", n=16)
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, p), params_from_numpy(p, "cpu")
+    jtracked = jax.jit(lambda q, aux, step, x, y: jh.nll_tracked(q, aux, step, x, y))
+    jl, jaux = jtracked(jp, jh.tracking_aux0(16), jnp.float32(0), _j(x), _j(y))
+    tl, taux = th.nll_tracked(tp, th.tracking_aux0(16, device="cpu"), 0, _t(x), _t(y))
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    assert float(taux[1]) == 0.0 and taux[0].shape == (16, 16)
+    tp2 = tree_map(lambda a: a * 1.01, tp)
+    jp2 = jax.tree_util.tree_map(lambda a: a * 1.01, jp)
+    jl2, _ = jtracked(jp2, (jnp.asarray(taux[0].numpy()), jaux[1]), jnp.float32(1), _j(x),
+                      _j(y))
+    tl2, taux2 = th.nll_tracked(tp2, taux, 1, _t(x), _t(y))
+    np.testing.assert_allclose(tl2.item(), float(jl2), rtol=1e-5)
+    assert 0.0 < float(taux2[1]) < 0.15
+
+
+def test_tracked_adaptive_gate():
+    """`nll_tracked_adaptive` along 12 Adam steps: with a threshold too high
+    to trip it is `nll_tracked` with refresh_every = max_gap, step for step
+    (the JAX test's `test_adaptive_residual_gated_refresh` pin); with a
+    zero threshold every step refreshes, so each value is the exact `nll`."""
+    _, th, p, x, y, _, _ = _case("ARD", n=16)
+    tp, x, y = params_from_numpy(p, "cpu"), _t(x), _t(y)
+    static = lambda q, aux, s, x, y: th.nll_tracked(q, aux, s, x, y,  # noqa: E731
+                                                    refresh_every=8)
+    no_trip = lambda q, aux, s, x, y: th.nll_tracked_adaptive(  # noqa: E731
+        q, aux, s, x, y, max_gap=8, res_threshold=1e9)
+    always = lambda q, aux, s, x, y: th.nll_tracked_adaptive(  # noqa: E731
+        q, aux, s, x, y, max_gap=8, res_threshold=-1.0)
+    aux0, aux0a = th.tracking_aux0(16, device="cpu"), th.tracking_aux0_adaptive(16, device="cpu")
+    _, _, l_static, _ = adam_scan_aux(static, tp, aux0, 5e-2, 12, loss_args=(x, y))
+    _, _, l_no, aux_no = adam_scan_aux(no_trip, tp, aux0a, 5e-2, 12, loss_args=(x, y))
+    _, _, l_all, aux_all = adam_scan_aux(always, tp, aux0a, 5e-2, 12, loss_args=(x, y))
+    _, _, l_exact = adam_scan(th.nll, tp, 5e-2, 12, loss_args=(x, y))
+    np.testing.assert_allclose(l_no.numpy(), l_static.numpy(), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(l_all.numpy(), l_exact.numpy(), rtol=1e-6, atol=1e-7)
+    assert float(aux_all[1]) == 0.0 and 0.0 < float(aux_no[1]) < 0.15
+
+
+def test_restart_batch_equals_per_restart():
+    """R = 3 parameter sets (and per-restart targets): `nll`'s values and
+    gradients, `nll_with_state`'s values, equal to per-restart calls."""
+    _, th, p, x, y, yv, _ = _case("ARD")
+    rng = np.random.default_rng(9)
+    ps = [tree_map(lambda a, s=s: a * (1 + 0.2 * s), params_from_numpy(p, "cpu")) for s in range(3)]
+    batch = tree_map(lambda *a: torch.stack(a).requires_grad_(True), *ps)
+    yb = torch.tensor(np.stack([y, y + 0.1 * rng.standard_normal(y.shape).astype(np.float32),
+                                -y]))
+    v = th.nll(batch, _t(x), yb, _t(yv))
+    v.sum().backward()
+    vs = th.nll_with_state(tree_map(lambda a: a.detach(), batch), _t(x), yb, _t(yv))[0]
+    for r in range(3):
+        q = tree_map(lambda a: a.requires_grad_(True), ps[r])
+        v1 = th.nll(q, _t(x), yb[r], _t(yv))
+        v1.backward()
+        np.testing.assert_allclose(v[r].item(), v1.item(), rtol=1e-5)
+        np.testing.assert_allclose(vs[r].item(), v1.item(), rtol=1e-5)
+        for a, b in zip(tree_leaves(batch), tree_leaves(q)):
+            np.testing.assert_allclose(a.grad[r].numpy(), b.grad.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def test_dim1_length_scale_gradient_sums_over_inputs():
+    """A dim-1 ARD length scale against d = 4 inputs: the Gram equals the
+    one with the scale repeated, and its gradient is the sum of the
+    repeated scale's four gradients."""
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.random((10, 4)), dtype=torch.float32)
+    k = TK.ARDKernel()
+    one = {"length_scales": torch.tensor([0.7], requires_grad=True),
+           "signal_variance": torch.tensor([1.3])}
+    four = {"length_scales": torch.full((4,), 0.7, requires_grad=True),
+            "signal_variance": torch.tensor([1.3])}
+    K1, K4 = k.apply(one, x, x, diag_add=torch.tensor(1e-2)), k.apply(four, x, x,
+                                                                       diag_add=torch.tensor(1e-2))
+    np.testing.assert_allclose(K1.detach().numpy(), K4.detach().numpy(), rtol=1e-6)
+    w = torch.tensor(rng.standard_normal((10, 10)), dtype=torch.float32)
+    (K1 * w).sum().backward()
+    (K4 * w).sum().backward()
+    np.testing.assert_allclose(one["length_scales"].grad.item(),
+                               four["length_scales"].grad.sum().item(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("l_dim,h_dim", [(4, 7), (6, 10), (5, 5), (14, 6)])
+def test_interp_identity_matches_jax(l_dim, h_dim):
+    np.testing.assert_array_equal(interp_identity(l_dim, h_dim), j_interp(l_dim, h_dim))
+
+
+def test_tensor_linear_matches_jax_and_accumulates_all_modes():
+    rng = np.random.default_rng(3)
+    jtl, ttl = JTL((3, 4), (5, 6)), TensorLinear((3, 4), (5, 6))
+    maps = [rng.standard_normal(M.shape).astype(np.float32) for M in jtl.init_params()["maps"]]
+    x = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    want = np.asarray(jtl.apply({"maps": [jnp.asarray(M) for M in maps]}, jnp.asarray(x)))
+    got = ttl.apply({"maps": [torch.tensor(M) for M in maps]}, torch.tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    sq = TensorLinear((3, 4), (3, 4))
+    out = sq.apply({"maps": [2.0 * torch.eye(3), 3.0 * torch.eye(4)]}, torch.ones((2, 3, 4)))
+    np.testing.assert_allclose(out.numpy(), 6.0 * np.ones((2, 3, 4)))
+
+
+def test_tensor_linear_restart_batch():
+    """Maps with a restart axis over a shared (or per-restart) input equal
+    per-restart lifts."""
+    rng = np.random.default_rng(4)
+    tl = TensorLinear((3, 4), (5, 6))
+    maps = [torch.tensor(rng.standard_normal((2,) + M.shape), dtype=torch.float32)
+            for M in tl.init_params(device="cpu")["maps"]]
+    x = torch.tensor(rng.standard_normal((7, 3, 4)), dtype=torch.float32)
+    got = tl.apply({"maps": maps}, x)
+    got_b = tl.apply({"maps": maps}, torch.stack([x, x]))
+    assert got.shape == (2, 7, 5, 6)
+    for r in range(2):
+        want = tl.apply({"maps": [M[r] for M in maps]}, x)
+        np.testing.assert_allclose(got[r].numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got_b[r].numpy(), want.numpy(), rtol=1e-5, atol=1e-6)

@@ -46,7 +46,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from fidelityfusion_tpu_torch.models.car import (
         ContinuousAutoRegression, ContinuousAutoRegressionLarge)
     from fidelityfusion_tpu_torch.models.cigp import CIGP, GPBasic
+    from fidelityfusion_tpu_torch.models import two_fidelity as two
+    from fidelityfusion_tpu_torch.models.cigar import CIGAR
+    from fidelityfusion_tpu_torch.models.coupling import TensorLinear
     from fidelityfusion_tpu_torch.models.fides import FIDES
+    from fidelityfusion_tpu_torch.models.gar import GAR
+    from fidelityfusion_tpu_torch.models.hogp import HOGP
     from fidelityfusion_tpu_torch.models.nar import NAR
     from fidelityfusion_tpu_torch.models.resgp import ResGP
     from fidelityfusion_tpu_torch.models.respca import PCA
@@ -59,10 +64,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                  lambda: ContinuousAutoRegressionLarge(3, ard),
                  lambda: CIGP(se).init_params(1), lambda: GPBasic(ard).init_params(1),
                  lambda: GPBasic(MCFidelityKernel(base=ard)).init_params(1),
-                 lambda: FIDES().init_params(1), lambda: PCA(np.ones((4, 3)))):
+                 lambda: FIDES().init_params(1), lambda: PCA(np.ones((4, 3))),
+                 lambda: HOGP(ard, (4, 3)).init_params(4),
+                 lambda: HOGP(ard, (4, 3)).tracking_aux0(8),
+                 lambda: HOGP(ard, (4, 3)).tracking_aux0_adaptive(8),
+                 lambda: TensorLinear((3,), (5,)).init_params(),
+                 lambda: GAR(2, [ard] * 2, [(3, 3), (5, 5)]),
+                 lambda: CIGAR(2, [ard] * 2, [(3, 3), (5, 5)]),
+                 lambda: two.ARTwoFidelity(), lambda: two.NARTwoFidelity(),
+                 lambda: two.ResGPTwoFidelity(), lambda: two.GARTwoFidelity((3, 3), (5, 5))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-    for model in ("AR", "NAR", "ResGP", "CAR", "CAR_large", "CIGP", "FIDES"):
+    for model in ("AR", "NAR", "ResGP", "CAR", "CAR_large", "CIGP", "FIDES", "GAR", "HOGP",
+                  "CIGAR"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             demo.main([model, "--iters", "1"])
 
@@ -83,3 +97,13 @@ def test_demo_runs_on_cpu_when_asked():
 
     m = demo.main(["AR", "--device", "cpu", "--iters", "30", "--restarts", "2"])
     assert np.isfinite(list(m.values())).all() and m["rmse"] < 0.2
+
+
+@pytest.mark.parametrize("model", ["HOGP", "GAR", "CIGAR"])
+def test_field_demo_runs_on_cpu_when_asked(model):
+    """The field models' demo on 64 Poisson fields, cut to 20 steps and two
+    restarts: finite metrics, r2 above 0.5 on the held-out fields."""
+    from fidelityfusion_tpu_torch import demo
+
+    m = demo.main([model, "--device", "cpu", "--iters", "20", "--restarts", "2"])
+    assert np.isfinite(list(m.values())).all() and m["r2"] > 0.5
