@@ -26,22 +26,35 @@ def params_from_numpy(tree, device="cuda"):
         lambda a: torch.tensor(np.asarray(a, np.float32), device=device), tree)
 
 
-def load_state(model, params, stage_norm=None, data_manager=None) -> None:
-    """Set a cascade's parameters from the JAX model's ``params`` (numpy
+def load_state(model, params, stage_norm=None, data_manager=None, train_data=None) -> None:
+    """Set a model's parameters from the JAX model's ``params`` (numpy
     arrays) and, for the models that standardize residuals per stage,
     ``stage_norm`` (per-stage ``(shift, scale)``).  One loader for every
     cascade: `AR` (``{"gp": [...], "rho": [...]}``), `ResGP` and `NAR`
     (``{"gp": [...]}``), staged CAR (``{"gp": [...], "b": ...}``, each
     residual kernel with its ``_z``), CAR-large (one GPBasic's parameters,
     its kernel with ``_w`` and ``_t``), `GAR` (``{"hogp": [...], "tl":
-    [...]}``) and `CIGAR` (``{"gp": [...], "tl": [...]}``).
+    [...]}``) and `CIGAR` (``{"gp": [...], "tl": [...]}``).  A cascade
+    trained jointly (`models/joint.py`) has the same trees as a staged one;
+    its ``res-i`` / ``concat-i`` datasets go into the port's data manager
+    as the staged ones do.
 
     A GAR predicts from per-stage posterior states: given the
     ``data_manager`` that holds its stage datasets (fidelity 0 and the
     ``res-i`` residuals of training), they are rebuilt from the loaded
-    parameters (`GAR.rebuild_states`)."""
+    parameters (`GAR.rebuild_states`).
+
+    The legacy wrappers (`models/legacy.py`: `LegacyCIGP`, `LegacyHOGP`,
+    `LegacyFIDES`) take their core's parameters and, as ``train_data``,
+    the ``(train_x, train_y)`` they cached; a `LegacyHOGP`'s posterior
+    state is then made anew at its next `forward`."""
     model.params = params_from_numpy(params, model.device)
     if stage_norm is not None:
         model.stage_norm = [(float(s), float(c)) for s, c in stage_norm]
     if data_manager is not None and hasattr(model, "rebuild_states"):
         model.rebuild_states(data_manager)
+    if train_data is not None:
+        model.train_x, model.train_y = (
+            torch.tensor(np.asarray(a, np.float32), device=model.device) for a in train_data)
+        if hasattr(model, "_state"):
+            model._state = None

@@ -12,6 +12,13 @@ Parameter leaves may carry a leading restart dimension; ``y`` is then
 and ``y_var`` ``(*batch, n)`` or ``(n,)``.  For an SE-form kernel Sigma is
 built in one K1 pass (Gram + noise + jitter + y_var on the diagonal); the
 mask is a torch op after it.
+
+``CIGP(x64_factor=True)`` is the JAX package's float64 island: the Gram
+(`Kernel.dense`, the JAX formula), the noise assembly, the Cholesky, the
+solves and the log-determinant run in plain float64 PyTorch
+(`torch.linalg.cholesky`, cuSOLVER on the card), never through the float32
+kernels, and the gradients reach the float32 parameters through the cast.
+Unbatched and unmasked only; the data get no gradient (as in JAX).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from fidelityfusion_tpu_torch.ops import linalg
 from fidelityfusion_tpu_torch.ops.kernels import Kernel
 from fidelityfusion_tpu_torch.utils.device import resolve_device
+from fidelityfusion_tpu_torch.utils.tree import tree_map
 
 JITTER = linalg.JITTER
 
@@ -70,7 +78,7 @@ class CIGP:
     # f32 RELATIVE noise floor: bounds cond(Sigma) <= n / min_noise
     min_noise: float = 1e-4
     se_analytic_nll: bool = True
-    # the float64 factorization of the JAX package; not ported yet
+    # float64 Gram, factorization and posterior for Sigmas beyond float32
     x64_factor: bool = False
 
     def init_params(self, input_dim: int, log_beta: float = 1.0, device="cuda"):
@@ -84,13 +92,59 @@ class CIGP:
         return torch.maximum(torch.exp(-params["log_beta"][..., 0]),
                              self.min_noise * K_diag_mean)
 
-    def _check_x64(self):
-        if self.x64_factor:
-            raise NotImplementedError("x64_factor is not ported yet")
+    def _sigma64(self, params, x, y_var=None, mask=None):
+        """The float64 Sigma of the ``x64_factor`` island and its noise: the
+        noise is the float32 parameter's, floored by the float64 Gram's
+        mean diagonal taken to float32 (the JAX package's order)."""
+        if mask is not None:
+            raise NotImplementedError(
+                "x64_factor does not support masked/padded training "
+                "(the escape hatch targets ill-conditioned exact solves)")
+        f64 = torch.float64
+        kp = tree_map(lambda a: a.to(f64), params["kernel"])
+        K = self.kernel.dense(kp, x.detach().to(f64), x.detach().to(f64))
+        noise = self.noise(params, K.diagonal().mean().to(torch.float32)).to(f64)
+        yv = None if y_var is None else y_var.detach().to(f64)
+        Sigma = linalg.assemble_sigma(K, noise, jitter=self.jitter, y_var=yv,
+                                      relative_jitter=self.relative_jitter)
+        return Sigma, noise, kp
+
+    def nll64(self, params, x, y, y_var=None, mask=None) -> torch.Tensor:
+        """The ``x64_factor`` island's NLML in float64, before `nll` casts it
+        to float32."""
+        Sigma, _, _ = self._sigma64(params, x, y_var, mask)
+        y64 = _targets(y).detach().to(torch.float64)
+        L = _chol64(Sigma)
+        gamma = torch.linalg.solve_triangular(L, y64, upper=False)
+        n, d = y64.shape
+        return (0.5 * (gamma * gamma).sum() + d * torch.log(L.diagonal()).sum()
+                + 0.5 * n * d * linalg.LOG2PI)
+
+    def _predict_x64(self, params, x_train, y_train, x_test, y_var=None, mask=None,
+                     diag=True):
+        """The float64 posterior (factorization and cross-Gram), returned in
+        float32."""
+        with torch.no_grad():
+            Sigma, noise, kp = self._sigma64(params, x_train, y_var, mask)
+            f64 = torch.float64
+            xtr, xte = x_train.to(f64), x_test.to(f64)
+            L = _chol64(Sigma)
+            K_s = self.kernel.dense(kp, xtr, xte)
+            alpha = torch.cholesky_solve(_targets(y_train).to(f64), L)
+            v = torch.linalg.solve_triangular(L, K_s, upper=False)
+            mean = K_s.T @ alpha
+            if diag:
+                var = torch.clamp(self.kernel.diag(kp, xte) - (v * v).sum(0), min=0.0)
+                out = (mean, var + noise)
+            else:
+                cov = _clamp_diag(self.kernel.dense(kp, xte, xte) - v.T @ v) + noise
+                out = (mean, cov)
+        return tuple(o.to(torch.float32) for o in out)
 
     def nll(self, params, x, y, y_var=None, mask=None) -> torch.Tensor:
         """Negative log marginal likelihood (``(*batch)``) to minimize."""
-        self._check_x64()
+        if self.x64_factor:
+            return self.nll64(params, x, y, y_var, mask).to(torch.float32)
         y2 = _targets(y)
         if (
             self.se_analytic_nll
@@ -120,32 +174,40 @@ class CIGP:
             return linalg.mvn_nll_fused(Sigma, y2)
         return linalg.mvn_nll(Sigma, y2, mask=mask)
 
-    def _noise_out(self, params):
-        return self.noise(params, self.kernel.signal_variance(params["kernel"]))
+    def _noise_out(self, params, x_train):
+        """The noise added to predictive variances, floored by the mean
+        prior variance at the training inputs."""
+        kp = params["kernel"]
+        if self.kernel.SE_FORM:
+            return self.noise(params, self.kernel.signal_variance(kp))
+        return self.noise(params, self.kernel.diag(kp, x_train).mean(-1))
 
     def predict(self, params, x_train, y_train, x_test, y_var=None,
                 mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Posterior mean and full test covariance plus the noise."""
-        self._check_x64()
+        if self.x64_factor:
+            return self._predict_x64(params, x_train, y_train, x_test, y_var, mask, diag=False)
         Sigma = build_sigma(self, params, x_train, y_var, mask)
         K_s = self.kernel.apply(params["kernel"], x_train, x_test)
         K_ss = self.kernel.apply(params["kernel"], x_test, x_test)
         mean, cov = linalg.posterior(Sigma, y_train, K_s, K_ss, mask=mask)
-        return mean, _clamp_diag(cov) + self._noise_out(params)
+        return mean, _clamp_diag(cov) + self._noise_out(params, x_train)
 
     def predict_diag(self, params, x_train, y_train, x_test, y_var=None,
                      mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Posterior mean and diagonal variance plus the noise."""
-        self._check_x64()
+        if self.x64_factor:
+            return self._predict_x64(params, x_train, y_train, x_test, y_var, mask, diag=True)
         Sigma = build_sigma(self, params, x_train, y_var, mask)
         K_s = self.kernel.apply(params["kernel"], x_train, x_test)
         k_ss = self.kernel.diag(params["kernel"], x_test)
         mean, var = linalg.posterior_diag(Sigma, y_train, K_s, k_ss, mask=mask)
-        return mean, var + self._noise_out(params)
+        return mean, var + self._noise_out(params, x_train)
 
     def posterior_cache(self, params, x_train, y_train, y_var=None, mask=None) -> dict:
-        """One-time (inv(L), alpha) factorization of the training set."""
-        self._check_x64()
+        """One-time (inv(L), alpha) factorization of the training set (the
+        float32 factorization, as in the JAX package, whatever
+        ``x64_factor``)."""
         Sigma = build_sigma(self, params, x_train, y_var, mask)
         return linalg.posterior_cache(Sigma, y_train, mask=mask)
 
@@ -154,14 +216,14 @@ class CIGP:
         K_s = self.kernel.apply(params["kernel"], x_train, x_test)
         k_ss = self.kernel.diag(params["kernel"], x_test)
         mean, var = linalg.posterior_diag_cached(cache, K_s, k_ss, mask=mask)
-        return mean, var + self._noise_out(params)
+        return mean, var + self._noise_out(params, x_train)
 
     def predict_cached(self, params, cache, x_train, x_test, mask=None):
         """`predict` (full covariance + noise) from a `posterior_cache`."""
         K_s = self.kernel.apply(params["kernel"], x_train, x_test)
         K_ss = self.kernel.apply(params["kernel"], x_test, x_test)
         mean, cov = linalg.posterior_cached(cache, K_s, K_ss, mask=mask)
-        return mean, _clamp_diag(cov) + self._noise_out(params)
+        return mean, _clamp_diag(cov) + self._noise_out(params, x_train)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +268,14 @@ class GPBasic:
         K_s = self.kernel.apply(params["kernel"], x_train, x_test)
         k_ss = self.kernel.diag(params["kernel"], x_test)
         return linalg.posterior_diag(Sigma, y_train, K_s, k_ss, mask=mask)
+
+
+def _chol64(Sigma):
+    """Cholesky factor of the float64 island, NaN where Sigma is not
+    positive definite (`jnp.linalg.cholesky`'s answer; `torch.linalg.
+    cholesky` would raise), so the trainer's rollback sees a NaN loss."""
+    L, info = torch.linalg.cholesky_ex(Sigma)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
 
 
 def _clamp_diag(cov):

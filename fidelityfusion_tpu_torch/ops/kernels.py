@@ -1,9 +1,7 @@
 """Covariance kernels as static specs over parameter dicts of tensors.
 
-Port of `fidelityfusion_tpu/ops/kernels.py` (the parts the CIGP cascades
-need: `sq_dist`, `Kernel`, `ARDKernel`, `SquaredExponentialKernel`,
-`MCFidelityKernel`, `median_heuristic`, `trainable_mask`).  A spec is a
-frozen dataclass that holds no tensors:
+Port of `fidelityfusion_tpu/ops/kernels.py`.  A spec is a frozen
+dataclass that holds no tensors:
 
     params = spec.init_params(input_dim, device=...)   # dict of tensors
     K      = spec(params, x1, x2)                      # (*batch, n1, n2)
@@ -14,8 +12,18 @@ every kernel here is an SE form ``sv * exp(-0.5 ||(x1 - x2) / ls||^2)``,
 so each only says what its ``1/ls`` and ``sv`` are (`gram_args`), and the
 noise diagonal can ride in the same pass (``diag_add``, ``y_var``).
 
-Parametrizations follow the JAX package exactly: ARD ``ls = |raw| + eps``,
-``sv = |raw|``; scalar SE ``ls = exp(t)``, ``sv = exp(u)^2``.
+The other kernels (`MaternKernel`, `LinearKernel`,
+`RationalQuadraticKernel`, `SumKernel`, `ProductKernel`,
+`MaternKernelScalarLengthScale`) are not SE forms: they set ``SE_FORM =
+False`` and build their Gram in plain PyTorch by the JAX package's
+formulas (the JAX package computes them in XLA, not in a Pallas kernel),
+so a CIGP over one of them adds its nugget afterwards
+(`models/cigp.py:build_sigma`).
+
+Parametrizations follow the JAX package exactly: ARD and Matern ``ls =
+|raw| + eps``, ``sv = |raw|``; scalar SE ``ls = exp(t)``, ``sv = exp(u)^2``.
+`Kernel.dense` is any kernel's Gram in plain PyTorch in the inputs' dtype
+by the JAX formula (the float64 island of `CIGP(x64_factor=True)`).
 """
 
 from __future__ import annotations
@@ -31,13 +39,14 @@ EPS = 1e-9
 
 
 def sq_dist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared distances ``(n1, d), (n2, d) -> (n1, n2)`` by the
-    quadratic expansion, clamped at zero.  The cross term is a full-fp32
-    product (TF32 would cancel catastrophically here); the Gram kernels
-    do not use this function, they take direct differences."""
-    n1 = (x1 * x1).sum(-1)[:, None]
-    n2 = (x2 * x2).sum(-1)[None, :]
-    return torch.clamp(n1 + n2 - 2.0 * (x1 @ x2.T), min=0.0)
+    """Pairwise squared distances ``(*batch, n1, d), (*batch, n2, d) ->
+    (*batch, n1, n2)`` by the quadratic expansion, clamped at zero.  The
+    cross term is a full-precision product in the inputs' dtype (TF32
+    would cancel catastrophically here); K1 does not use this function, it
+    takes direct differences."""
+    n1 = (x1 * x1).sum(-1)[..., :, None]
+    n2 = (x2 * x2).sum(-1)[..., None, :]
+    return torch.clamp(n1 + n2 - 2.0 * (x1 @ x2.transpose(-1, -2)), min=0.0)
 
 
 def _linspace_rows(n: int, num: int) -> torch.Tensor:
@@ -97,6 +106,62 @@ class Kernel:
     def set_lengthscales(self, params, ls):
         return params
 
+    def dense(self, params, x1, x2):
+        """The unbatched Gram in plain PyTorch, in the inputs' dtype."""
+        inv_ls, sv = self.gram_args(params, x1.shape[-1])
+        return sv * torch.exp(-0.5 * sq_dist(x1 * inv_ls, x2 * inv_ls))
+
+
+class _DenseKernel(Kernel):
+    """A kernel whose Gram is not an SE form: `apply` builds it in plain
+    PyTorch (any dtype, parameters with an optional leading batch) and adds
+    ``diag_add`` / ``y_var`` to a square Gram's diagonal after it; its
+    diagonal is that of `apply` (the JAX package's default)."""
+
+    SE_FORM = False
+
+    def gram(self, params, x1, x2):
+        raise NotImplementedError
+
+    def apply(self, params, x1, x2, diag_add=None, y_var=None):
+        K = self.gram(params, x1, x2)
+        if diag_add is None and y_var is None:
+            return K
+        extra = torch.zeros(K.shape[:-1], dtype=K.dtype, device=K.device)
+        if diag_add is not None:
+            extra = extra + torch.as_tensor(diag_add, dtype=K.dtype)[..., None]
+        if y_var is not None:
+            extra = extra + y_var
+        return K + torch.diag_embed(extra)
+
+    def diag(self, params, x):
+        return self.apply(params, x, x).diagonal(dim1=-2, dim2=-1)
+
+    def dense(self, params, x1, x2):
+        return self.apply(params, x1, x2)
+
+
+def _col(a):
+    """A ``(*batch, 1)`` parameter's value as ``(*batch, 1, 1)``."""
+    return a[..., None]
+
+
+def _rows(a):
+    """A ``(*batch, d)`` parameter as ``(*batch, 1, d)``, to scale ``(n, d)``
+    inputs."""
+    return a[..., None, :]
+
+
+def _set_ard_lengthscales(params, ls):
+    out = dict(params)
+    ls = torch.as_tensor(ls, dtype=torch.float32).reshape(-1)
+    shape = params["length_scales"].shape
+    if ls.shape[0] != shape[0]:
+        # e.g. HOGP shares a dim-1 kernel across modes: collapse to mean
+        ls = torch.full(shape, float(ls.mean()), dtype=torch.float32)
+    out["length_scales"] = ls.to(params["length_scales"].device)
+    return out
+
 
 @dataclasses.dataclass(frozen=True)
 class ARDKernel(Kernel):
@@ -115,14 +180,13 @@ class ARDKernel(Kernel):
         ls = torch.abs(params["length_scales"]) + self.eps
         return 1.0 / ls, torch.abs(params["signal_variance"][..., 0])
 
+    def dense(self, params, x1, x2):
+        ls = torch.abs(params["length_scales"]) + self.eps
+        return torch.abs(params["signal_variance"][0]) * torch.exp(
+            -0.5 * sq_dist(x1 / ls, x2 / ls))
+
     def set_lengthscales(self, params, ls):
-        out = dict(params)
-        ls = torch.as_tensor(ls, dtype=torch.float32).reshape(-1)
-        shape = params["length_scales"].shape
-        if ls.shape[0] != shape[0]:
-            ls = torch.full(shape, float(ls.mean()), dtype=torch.float32)
-        out["length_scales"] = ls.to(params["length_scales"].device)
-        return out
+        return _set_ard_lengthscales(params, ls)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +205,11 @@ class SquaredExponentialKernel(Kernel):
         t = params["length_scale"][..., 0]
         inv_ls = torch.exp(-t)[..., None].expand(t.shape + (d,))
         return inv_ls, torch.exp(params["signal_variance"][..., 0]) ** 2
+
+    def dense(self, params, x1, x2):
+        ls2 = torch.exp(params["length_scale"][0]) ** 2
+        sv2 = torch.exp(params["signal_variance"][0]) ** 2
+        return sv2 * torch.exp(-0.5 * sq_dist(x1, x2) / ls2)
 
     def set_lengthscales(self, params, ls):
         out = dict(params)
@@ -204,6 +273,146 @@ class MCFidelityKernel(Kernel):
         out = dict(params)
         out["base"] = self.base.set_lengthscales(params["base"], ls)
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MaternKernel(_DenseKernel):
+    """Matern kernel with ARD length scales, nu in {0.5, 1.5, 2.5} and a
+    static ``rho``; ``eps`` floors the root (its gradient at 0)."""
+
+    nu: float = 2.5
+    rho: float = 1.0
+    eps: float = EPS
+
+    def init_params(self, input_dim: int, device="cuda"):
+        return {
+            "length_scales": torch.ones((input_dim,), device=device),
+            "signal_variance": torch.ones((1,), device=device),
+        }
+
+    def gram(self, params, x1, x2):
+        ls = _rows(torch.abs(params["length_scales"]) + self.eps)
+        d2 = sq_dist(x1 / ls, x2 / ls)
+        sv = _col(torch.abs(params["signal_variance"]))
+        if self.nu == 0.5:
+            d = torch.sqrt(d2 + self.eps)
+            return sv * torch.exp(-d / self.rho)
+        if self.nu == 1.5:
+            d = torch.sqrt(3.0 * d2 + self.eps)
+            return sv * (1.0 + d / self.rho) * torch.exp(-d / self.rho)
+        if self.nu == 2.5:
+            d = torch.sqrt(5.0 * d2 + self.eps)
+            return (sv * (1.0 + d / self.rho + (5.0 / 3.0) * d2 / self.rho ** 2)
+                    * torch.exp(-d / self.rho))
+        raise ValueError(f"nu must be one of 0.5/1.5/2.5, got {self.nu}")
+
+    def set_lengthscales(self, params, ls):
+        return _set_ard_lengthscales(params, ls)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearKernel(_DenseKernel):
+    """k(x, x') = |sv| <(x - c) / ls, (x' - c) / ls>, per-dimension scales
+    and center."""
+
+    def init_params(self, input_dim: int, device="cuda"):
+        return {
+            "length_scales": torch.ones((input_dim,), device=device),
+            "signal_variance": torch.ones((1,), device=device),
+            "center": torch.zeros((input_dim,), device=device),
+        }
+
+    def gram(self, params, x1, x2):
+        ls, c = _rows(params["length_scales"]), _rows(params["center"])
+        z1, z2 = (x1 - c) / ls, (x2 - c) / ls
+        return _col(torch.abs(params["signal_variance"])) * (z1 @ z2.transpose(-1, -2))
+
+
+@dataclasses.dataclass(frozen=True)
+class RationalQuadraticKernel(_DenseKernel):
+    """k = sv^2 (1 + d^2 / (2 alpha ls^2))^(-alpha), scalar length scale."""
+
+    def init_params(self, input_dim: int, device="cuda"):
+        del input_dim
+        return {
+            "length_scale": torch.ones((1,), device=device),
+            "signal_variance": torch.ones((1,), device=device),
+            "alpha": torch.ones((1,), device=device),
+        }
+
+    def gram(self, params, x1, x2):
+        d2 = sq_dist(x1, x2)
+        ls, sv, alpha = (_col(params[k]) for k in ("length_scale", "signal_variance", "alpha"))
+        return sv ** 2 * torch.pow(1.0 + 0.5 * d2 / (alpha * ls ** 2), -alpha)
+
+
+@dataclasses.dataclass(frozen=True)
+class SumKernel(_DenseKernel):
+    """k1 + k2."""
+
+    k1: Kernel
+    k2: Kernel
+
+    def init_params(self, input_dim: int, device="cuda"):
+        return {"k1": self.k1.init_params(input_dim, device=device),
+                "k2": self.k2.init_params(input_dim, device=device)}
+
+    def gram(self, params, x1, x2):
+        return self.k1.apply(params["k1"], x1, x2) + self.k2.apply(params["k2"], x1, x2)
+
+    def diag(self, params, x):
+        return self.k1.diag(params["k1"], x) + self.k2.diag(params["k2"], x)
+
+    def dense(self, params, x1, x2):
+        return self.k1.dense(params["k1"], x1, x2) + self.k2.dense(params["k2"], x1, x2)
+
+    def set_lengthscales(self, params, ls):
+        return {"k1": self.k1.set_lengthscales(params["k1"], ls),
+                "k2": self.k2.set_lengthscales(params["k2"], ls)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductKernel(_DenseKernel):
+    """k1 * k2."""
+
+    k1: Kernel
+    k2: Kernel
+
+    def init_params(self, input_dim: int, device="cuda"):
+        return {"k1": self.k1.init_params(input_dim, device=device),
+                "k2": self.k2.init_params(input_dim, device=device)}
+
+    def gram(self, params, x1, x2):
+        return self.k1.apply(params["k1"], x1, x2) * self.k2.apply(params["k2"], x1, x2)
+
+    def diag(self, params, x):
+        return self.k1.diag(params["k1"], x) * self.k2.diag(params["k2"], x)
+
+    def dense(self, params, x1, x2):
+        return self.k1.dense(params["k1"], x1, x2) * self.k2.dense(params["k2"], x1, x2)
+
+    def set_lengthscales(self, params, ls):
+        return {"k1": self.k1.set_lengthscales(params["k1"], ls),
+                "k2": self.k2.set_lengthscales(params["k2"], ls)}
+
+
+@dataclasses.dataclass(frozen=True)
+class MaternKernelScalarLengthScale(_DenseKernel):
+    """The deprecated scalar-length-scale Matern variant:
+    k = sv^2 (1 + sqrt(3 d^2) / ls^2)^(-nu), ``nu`` a parameter."""
+
+    def init_params(self, input_dim: int, device="cuda"):
+        del input_dim
+        return {
+            "length_scale": torch.ones((1,), device=device),
+            "signal_variance": torch.ones((1,), device=device),
+            "nu": torch.tensor([2.5], device=device),
+        }
+
+    def gram(self, params, x1, x2):
+        d2 = sq_dist(x1, x2)
+        ls, sv, nu = (_col(params[k]) for k in ("length_scale", "signal_variance", "nu"))
+        return sv ** 2 * torch.pow(1.0 + torch.sqrt(3.0 * d2 + EPS) / ls ** 2, -nu)
 
 
 def trainable_mask(kernel: Optional[Kernel], params) -> dict:

@@ -237,3 +237,63 @@ def test_tri_inv_kernel_back_to_back_calls_are_bit_identical(dev):
     outs = [tri_inv(L, Wd) for _ in range(50)]
     torch.cuda.synchronize()
     assert all(torch.equal(W, W0) for W in outs)
+
+
+def _toy_manager():
+    from fidelityfusion_tpu_torch.demo import _toy_3fid
+    from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager
+
+    xs, ys, x_test, _ = _toy_3fid(seed=1)
+    return MultiFidelityDataManager([
+        {"raw_fidelity_name": str(i), "fidelity_indicator": i, "X": x, "Y": y}
+        for i, (x, y) in enumerate(zip(xs, ys))]), x_test
+
+
+def test_joint_ar_on_the_card_matches_cpu(dev):
+    """`train_joint` of a 3-fidelity AR (SE, 30 steps at lr 5e-2) on the
+    toy sin, on the card (K1, K2 + K3b a stage) and with ``device="cpu"``
+    (the plain versions): every step's loss within 1e-3 of max(|loss|,
+    rows), the forward means within 1e-3 of their scale."""
+    from fidelityfusion_tpu_torch.models.ar import AR
+    from fidelityfusion_tpu_torch.models.joint import train_joint
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.ops.kernels import SquaredExponentialKernel
+
+    out = {}
+    for device in ("cpu", dev):
+        dm, x_test = _toy_manager()
+        model = AR(3, [SquaredExponentialKernel() for _ in range(3)], device=device)
+        cuda.reset_launch_counts()
+        losses = train_joint(model, dm, max_iter=30, lr_init=5e-2)
+        mean, _ = model.forward(dm, x_test)
+        out[str(device)] = (losses.cpu(), mean.detach().cpu(), cuda.launch_counts())
+    (lc, mc, _), (lg, mg, counts) = out["cpu"], out["cuda"]
+    assert all(counts[k] >= 30 for k in ("gram", "chol", "tri_inv")), counts
+    rows = sum(len(e["X"]) for e in dm.data_dict.values() if e["fidelity_index"] is not None)
+    torch.testing.assert_close(lg, lc, rtol=0, atol=1e-3 * max(lc.abs().max().item(), rows))
+    torch.testing.assert_close(mg, mc, rtol=0, atol=1e-3 * mc.abs().max().item())
+
+
+def test_legacy_cigp_on_the_card_matches_cpu(dev):
+    """`LegacyCIGP.fit` (100 steps, 300 rows of the toy's fidelity 0, through
+    K1, K2 and K3b on the card) and `forward` on the card and on the CPU:
+    losses within 1e-3 of max(|loss|, rows), means within 1e-3 of their
+    scale, variances within 1e-3 of the prior's."""
+    from fidelityfusion_tpu_torch.demo import _toy_3fid
+    from fidelityfusion_tpu_torch.models.legacy import LegacyCIGP
+    from fidelityfusion_tpu_torch.ops import cuda
+
+    xs, ys, x_test, _ = _toy_3fid(seed=1)
+    out = {}
+    for device in ("cpu", dev):
+        gp = LegacyCIGP({"input_dim": 1}, device=device)
+        cuda.reset_launch_counts()
+        losses = gp.fit(xs[0], ys[0], max_iter=100)
+        mean, var = gp.forward(x_test)
+        sv = gp.core.kernel.signal_variance(gp.params["kernel"]).item()
+        out[str(device)] = (losses.cpu(), mean.cpu(), var.cpu(), sv, cuda.launch_counts())
+    (lc, mc, vc, sv, _), (lg, mg, vg, _, counts) = out["cpu"], out["cuda"]
+    assert all(counts[k] >= 100 for k in ("gram", "chol", "tri_inv")), counts
+    torch.testing.assert_close(lg, lc, rtol=0, atol=1e-3 * max(lc.abs().max().item(), 300))
+    torch.testing.assert_close(mg, mc, rtol=0, atol=1e-3 * mc.abs().max().item())
+    torch.testing.assert_close(vg, vc, rtol=0, atol=1e-3 * sv)

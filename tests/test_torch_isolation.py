@@ -3,6 +3,9 @@ the JAX package, and the port's entry points never move a run to the CPU
 on their own."""
 
 import ast
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +37,27 @@ def test_port_file_imports_no_jax(path):
     assert not roots & {"jax", "jaxlib", "optax", "fidelityfusion_tpu", "benchmarks"}, roots
 
 
+NEW_MODULES = ("models.joint", "models.legacy", "utils.config", "utils.logging",
+               "utils.profiling", "utils.checkpoint", "ops.kernels", "models.cigp", "convert")
+
+
+def test_port_module_imports_pull_in_no_jax():
+    """Each module of the joint/legacy slice, imported one after the other
+    in a fresh interpreter, loads neither JAX nor anything of the JAX
+    package (checked after every import, so a failure names its module)."""
+    code = ("import importlib, json, sys\n"
+            "bad = {}\n"
+            f"for m in {NEW_MODULES!r}:\n"
+            "    importlib.import_module('fidelityfusion_tpu_torch.' + m)\n"
+            "    bad[m] = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'fidelityfusion_tpu'))\n"
+            "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(bad) == set(NEW_MODULES) and not any(bad.values()), bad
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -52,9 +76,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from fidelityfusion_tpu_torch.models.fides import FIDES
     from fidelityfusion_tpu_torch.models.gar import GAR
     from fidelityfusion_tpu_torch.models.hogp import HOGP
+    from fidelityfusion_tpu_torch.models.legacy import LegacyCIGP, LegacyFIDES, LegacyHOGP
     from fidelityfusion_tpu_torch.models.nar import NAR
     from fidelityfusion_tpu_torch.models.resgp import ResGP
     from fidelityfusion_tpu_torch.models.respca import PCA
+    from fidelityfusion_tpu_torch.ops import kernels as TK
     from fidelityfusion_tpu_torch.ops.kernels import (
         ARDKernel, MCFidelityKernel, SquaredExponentialKernel)
 
@@ -72,7 +98,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                  lambda: GAR(2, [ard] * 2, [(3, 3), (5, 5)]),
                  lambda: CIGAR(2, [ard] * 2, [(3, 3), (5, 5)]),
                  lambda: two.ARTwoFidelity(), lambda: two.NARTwoFidelity(),
-                 lambda: two.ResGPTwoFidelity(), lambda: two.GARTwoFidelity((3, 3), (5, 5))):
+                 lambda: two.ResGPTwoFidelity(), lambda: two.GARTwoFidelity((3, 3), (5, 5)),
+                 LegacyCIGP, LegacyHOGP, LegacyFIDES,
+                 lambda: CIGP(TK.SumKernel(ard, TK.LinearKernel()), x64_factor=True).init_params(1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     for model in ("AR", "NAR", "ResGP", "CAR", "CAR_large", "CIGP", "FIDES", "GAR", "HOGP",

@@ -237,5 +237,14 @@ def test_cigp_predict_and_cache_match_jax_f64():
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-8, atol=1e-10)
+    # x64_factor: the float64 island's NLML (the JAX package's, rtol 1e-6 on
+    # its float32 result); only masked training stays unsupported
+    x64 = TCIGP(TK.SquaredExponentialKernel(), x64_factor=True)
+    jx64 = JCIGP(JK.SquaredExponentialKernel(), x64_factor=True)
+    jp32 = {"kernel": {k: jnp.asarray(v, jnp.float32) for k, v in kraw.items()},
+            "log_beta": jnp.asarray([3.0], jnp.float32)}
+    np.testing.assert_allclose(
+        x64.nll(tp, tx, ty).item(),
+        float(jx64.nll(jp32, *(jnp.asarray(a, jnp.float32) for a in (x, y)))), rtol=1e-6)
     with pytest.raises(NotImplementedError):
-        TCIGP(TK.SquaredExponentialKernel(), x64_factor=True).nll(tp, tx, ty)
+        x64.nll(tp, tx, ty, mask=torch.ones(len(x), dtype=torch.bool))

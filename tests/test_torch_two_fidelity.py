@@ -9,9 +9,9 @@ of max(|NLML|, 1), means within 3e-4 of their largest magnitude (the
 port's float64 eigh against JAX's float32 one on degenerate mode
 spectra) and variances within 1e-3 (prior minus explained, both O(1)
 against a result of ~0.15: float32 cancellation).  The vector wrappers delegate to the AR, NAR and ResGP
-trainers that tests/test_torch_ar.py, test_torch_nar.py and
-test_torch_mf_models.py hold to the JAX package; here they are held to the
-JAX test's own bar (in-fill RMSE < 0.5 on the smooth toy)."""
+trainers that tests/test_torch_gpbasic.py holds to the JAX package; here
+they are held to the JAX test's own bar (in-fill RMSE < 0.5 on the smooth
+toy)."""
 
 import jax
 import numpy as np

@@ -1,6 +1,5 @@
 """Checks shared by the port's field-model tests against the JAX package
-(tests/test_torch_gar.py, test_torch_gar_nonsubset.py, test_torch_cigar.py,
-test_torch_cigar_nonsubset.py).
+(GAR and CIGAR, subset and non-subset, in tests/test_torch_hogp.py).
 
 GAR and CIGAR on the Poisson fixture of `tests/test_hogp_gar.py:20`
 (resolutions (6, 10, 14), 48 samples, d_in = 4, seed 3), two fidelities,

@@ -1,11 +1,10 @@
 """Checks shared by the tests of the port against the JAX package.
 
 Parameters and gradients: `perturbed`, `leaves`, `value_and_grads_match`
-(tests/test_torch_gpbasic.py, tests/test_torch_car_fides.py).
+(tests/test_torch_gpbasic.py, tests/test_torch_legacy_utils.py).
 
-Cascades (tests/test_torch_mf_models.py and test_torch_resgp_nonsubset.py:
-ResGP; test_torch_nar.py and test_torch_nar_nonsubset.py: NAR;
-test_torch_car.py and test_torch_car_nonsubset.py: staged CAR): the port's trainer from
+Cascades (ResGP, NAR and staged CAR, in tests/test_torch_gpbasic.py): the
+port's trainer from
 the JAX model's init against the JAX package on the toy sin, subset and
 non-subset, then `forward` (and `export_posterior` where the model has
 one) with the JAX-trained parameters carried across, against the JAX
