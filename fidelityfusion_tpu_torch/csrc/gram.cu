@@ -12,6 +12,10 @@
 // at 3.35 TB/s); the O(n1 n2 d) arithmetic is small for GP inputs.  The
 // register path takes 7.5 us there by device time on an H100 80GB HBM3 at
 // 700 W (the chunked path below took 23.7 us).
+// Both paths are templated on the scalar: float (`ff_gram`, every caller
+// but one) and double (`ff_gram_f64`: the Kronecker path's Grams, whose
+// small eigenvalues the Kronecker product multiplies by up to ~1e6, past
+// what a float32 Gram's rounding leaves of them; models/hogp.py).
 // Distances are taken as direct differences, not the quadratic expansion
 // the TPU kernel used: d is small, nothing cancels, and the diagonal is
 // exactly sv.  Ragged n1 and n2 (the n x m cross-Gram of predict) are
@@ -35,6 +39,20 @@
 
 namespace {
 
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float exp_(float a) { return expf(a); }
+__device__ __forceinline__ double exp_(double a) { return exp(a); }
+
+// four consecutive outputs of a row, 16-byte aligned, as wide stores
+__device__ __forceinline__ void store4(float* o, const float* v) {
+  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* o, const double* v) {
+  reinterpret_cast<double2*>(o)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(o)[1] = make_double2(v[2], v[3]);
+}
+
 // the chunked path
 constexpr int T = 32;   // output tile
 constexpr int DC = 32;  // input-dimension chunk staged per pass
@@ -44,28 +62,29 @@ constexpr int ROWS = 4; // rows per thread: blockDim = (32, 8)
 constexpr int SMALL_TR = 32, SMALL_TC = 128, SMALL_THREADS = 256;
 constexpr int SMALL_CTAS_PER_SM = 2048 / SMALL_THREADS;
 
-__global__ void gram_kernel(const float* __restrict__ x1,
-                            const float* __restrict__ x2,
-                            const float* __restrict__ inv_ls,
-                            const float* __restrict__ sv,
-                            const float* __restrict__ diag_add,
-                            const float* __restrict__ y_var,
-                            float* __restrict__ out, int n1, int n2, int d) {
-  __shared__ float s1[T][DC + 1];
-  __shared__ float s2[T][DC + 1];
+template <typename F>
+__global__ void gram_kernel(const F* __restrict__ x1,
+                            const F* __restrict__ x2,
+                            const F* __restrict__ inv_ls,
+                            const F* __restrict__ sv,
+                            const F* __restrict__ diag_add,
+                            const F* __restrict__ y_var,
+                            F* __restrict__ out, int n1, int n2, int d) {
+  __shared__ F s1[T][DC + 1];
+  __shared__ F s2[T][DC + 1];
   const int b = blockIdx.z;
   const int row0 = blockIdx.y * T, col0 = blockIdx.x * T;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * T + tx;
-  const float* ls = inv_ls + (size_t)b * d;
-  float acc[ROWS] = {0.f, 0.f, 0.f, 0.f};
+  const F* ls = inv_ls + (size_t)b * d;
+  F acc[ROWS] = {0, 0, 0, 0};
   for (int k0 = 0; k0 < d; k0 += DC) {
     const int kc = min(DC, d - k0);
     for (int e = tid; e < T * DC; e += T * 8) {
       const int r = e / DC, k = e % DC;
-      float v1 = 0.f, v2 = 0.f;
+      F v1 = 0, v2 = 0;
       if (k < kc) {
-        const float s = ls[k0 + k];
+        const F s = ls[k0 + k];
         if (row0 + r < n1) v1 = x1[(size_t)(row0 + r) * d + k0 + k] * s;
         if (col0 + r < n2) v2 = x2[(size_t)(col0 + r) * d + k0 + k] * s;
       }
@@ -74,22 +93,22 @@ __global__ void gram_kernel(const float* __restrict__ x1,
     }
     __syncthreads();
     for (int k = 0; k < kc; ++k) {
-      const float c = s2[tx][k];
+      const F c = s2[tx][k];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
-        const float diff = s1[ty + 8 * i][k] - c;
-        acc[i] = fmaf(diff, diff, acc[i]);
+        const F diff = s1[ty + 8 * i][k] - c;
+        acc[i] = fma_(diff, diff, acc[i]);
       }
     }
     __syncthreads();
   }
-  const float svb = sv[b];
+  const F svb = sv[b];
   const int c = col0 + tx;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int r = row0 + ty + 8 * i;
     if (r < n1 && c < n2) {
-      float v = svb * expf(-0.5f * acc[i]);
+      F v = svb * exp_(F(-0.5) * acc[i]);
       if (r == c) {
         if (diag_add) v += diag_add[b];
         if (y_var) v += y_var[(size_t)b * n1 + r];
@@ -100,11 +119,11 @@ __global__ void gram_kernel(const float* __restrict__ x1,
 }
 
 // The register path: see the header.  tiles_r x tiles_c tiles per restart.
-template <int D>
+template <typename F, int D>
 __global__ void __launch_bounds__(SMALL_THREADS) gram_small_d_kernel(
-    const float* __restrict__ x1, const float* __restrict__ x2, const float* __restrict__ inv_ls,
-    const float* __restrict__ sv, const float* __restrict__ diag_add,
-    const float* __restrict__ y_var, float* __restrict__ out, int B, int n1, int n2,
+    const F* __restrict__ x1, const F* __restrict__ x2, const F* __restrict__ inv_ls,
+    const F* __restrict__ sv, const F* __restrict__ diag_add,
+    const F* __restrict__ y_var, F* __restrict__ out, int B, int n1, int n2,
     int tiles_r, int tiles_c) {
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const bool vec = (n2 & 3) == 0;  // rows of out start 16-byte aligned
@@ -113,34 +132,34 @@ __global__ void __launch_bounds__(SMALL_THREADS) gram_small_d_kernel(
     const int b = static_cast<int>(t / per_b), u = static_cast<int>(t % per_b);
     const int row0 = u / tiles_c * SMALL_TR, col0 = u % tiles_c * SMALL_TC;
     const int c0 = col0 + 4 * tx;
-    float ls[D], xc[4][D];
+    F ls[D], xc[4][D];
 #pragma unroll
     for (int k = 0; k < D; ++k) ls[k] = __ldg(inv_ls + b * D + k);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int k = 0; k < D; ++k)
-        xc[j][k] = c0 + j < n2 ? __ldg(x2 + static_cast<size_t>(c0 + j) * D + k) * ls[k] : 0.f;
-    const float s = __ldg(sv + b);
+        xc[j][k] = c0 + j < n2 ? __ldg(x2 + static_cast<size_t>(c0 + j) * D + k) * ls[k] : F(0);
+    const F s = __ldg(sv + b);
     const bool diag = (diag_add || y_var) && row0 < col0 + SMALL_TC && col0 < row0 + SMALL_TR;
-    const float da = diag_add ? __ldg(diag_add + b) : 0.f;
+    const F da = diag_add ? __ldg(diag_add + b) : F(0);
 #pragma unroll
     for (int i = 0; i < SMALL_TR / 8; ++i) {
       const int r = row0 + ty + 8 * i;
       if (r >= n1) break;
-      float xr[D];
+      F xr[D];
 #pragma unroll
       for (int k = 0; k < D; ++k) xr[k] = __ldg(x1 + static_cast<size_t>(r) * D + k) * ls[k];
-      float v[4];
+      F v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        float d2 = 0.f;
+        F d2 = 0;
 #pragma unroll
         for (int k = 0; k < D; ++k) {
-          const float diff = xr[k] - xc[j][k];
-          d2 = fmaf(diff, diff, d2);
+          const F diff = xr[k] - xc[j][k];
+          d2 = fma_(diff, diff, d2);
         }
-        v[j] = s * expf(-0.5f * d2);
+        v[j] = s * exp_(F(-0.5) * d2);
       }
       if (diag) {
 #pragma unroll
@@ -151,9 +170,9 @@ __global__ void __launch_bounds__(SMALL_THREADS) gram_small_d_kernel(
           }
         }
       }
-      float* o = out + (static_cast<size_t>(b) * n1 + r) * n2 + c0;
+      F* o = out + (static_cast<size_t>(b) * n1 + r) * n2 + c0;
       if (vec && c0 + 3 < n2) {
-        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        store4(o, v);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -163,9 +182,9 @@ __global__ void __launch_bounds__(SMALL_THREADS) gram_small_d_kernel(
   }
 }
 
-template <int D>
-cudaError_t launch_small_d(const float* x1, const float* x2, const float* inv_ls, const float* sv,
-                           const float* diag_add, const float* y_var, float* out, int B, int n1,
+template <typename F, int D>
+cudaError_t launch_small_d(const F* x1, const F* x2, const F* inv_ls, const F* sv,
+                           const F* diag_add, const F* y_var, F* out, int B, int n1,
                            int n2, cudaStream_t stream) {
   int dev = 0, sms = 0;
   const cudaError_t err = ff::device_sms(&dev, &sms);
@@ -174,9 +193,27 @@ cudaError_t launch_small_d(const float* x1, const float* x2, const float* inv_ls
   const long long tiles = static_cast<long long>(B) * tiles_r * tiles_c;
   const long long wave = static_cast<long long>(sms) * SMALL_CTAS_PER_SM;
   const long long grid = tiles < wave ? tiles : wave;  // one wave; each CTA loops over tiles
-  gram_small_d_kernel<D><<<static_cast<unsigned>(grid), SMALL_THREADS, 0, stream>>>(
+  gram_small_d_kernel<F, D><<<static_cast<unsigned>(grid), SMALL_THREADS, 0, stream>>>(
       x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, tiles_r, tiles_c);
   return cudaGetLastError();
+}
+
+template <typename F>
+int gram(const F* x1, const F* x2, const F* inv_ls, const F* sv, const F* diag_add,
+         const F* y_var, F* out, int B, int n1, int n2, int d, cudaStream_t st) {
+  if (d == 1)
+    return static_cast<int>(
+        launch_small_d<F, 1>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
+  if (d == 2)
+    return static_cast<int>(
+        launch_small_d<F, 2>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
+  if (d == 4)
+    return static_cast<int>(
+        launch_small_d<F, 4>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
+  dim3 grid((n2 + T - 1) / T, (n1 + T - 1) / T, B);
+  dim3 block(T, 8);
+  gram_kernel<F><<<grid, block, 0, st>>>(x1, x2, inv_ls, sv, diag_add, y_var, out, n1, n2, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -187,18 +224,15 @@ extern "C" int ff_gram(const float* x1, const float* x2, const float* inv_ls,
                        const float* sv, const float* diag_add,
                        const float* y_var, float* out, int B, int n1, int n2,
                        int d, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 1)
-    return static_cast<int>(
-        launch_small_d<1>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
-  if (d == 2)
-    return static_cast<int>(
-        launch_small_d<2>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
-  if (d == 4)
-    return static_cast<int>(
-        launch_small_d<4>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, st));
-  dim3 grid((n2 + T - 1) / T, (n1 + T - 1) / T, B);
-  dim3 block(T, 8);
-  gram_kernel<<<grid, block, 0, st>>>(x1, x2, inv_ls, sv, diag_add, y_var, out, n1, n2, d);
-  return static_cast<int>(cudaGetLastError());
+  return gram<float>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, d,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// the same in double
+extern "C" int ff_gram_f64(const double* x1, const double* x2, const double* inv_ls,
+                           const double* sv, const double* diag_add,
+                           const double* y_var, double* out, int B, int n1, int n2,
+                           int d, void* stream) {
+  return gram<double>(x1, x2, inv_ls, sv, diag_add, y_var, out, B, n1, n2, d,
+                      static_cast<cudaStream_t>(stream));
 }

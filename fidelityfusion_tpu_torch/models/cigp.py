@@ -89,8 +89,9 @@ class CIGP:
         }
 
     def noise(self, params, K_diag_mean=1.0) -> torch.Tensor:
-        return torch.maximum(torch.exp(-params["log_beta"][..., 0]),
-                             self.min_noise * K_diag_mean)
+        noise = torch.exp(-params["log_beta"][..., 0])
+        return torch.maximum(noise, torch.as_tensor(self.min_noise * K_diag_mean,
+                                                    dtype=noise.dtype, device=noise.device))
 
     def _sigma64(self, params, x, y_var=None, mask=None):
         """The float64 Sigma of the ``x64_factor`` island and its noise: the
@@ -246,8 +247,9 @@ class GPBasic:
         }
 
     def noise(self, params, K_diag_mean=1.0) -> torch.Tensor:
-        return torch.maximum(params["noise_variance"][..., 0] ** 2,
-                             self.min_noise * K_diag_mean)
+        noise = params["noise_variance"][..., 0] ** 2
+        return torch.maximum(noise, torch.as_tensor(self.min_noise * K_diag_mean,
+                                                    dtype=noise.dtype, device=noise.device))
 
     def nll(self, params, x, y, y_var=None, mask=None) -> torch.Tensor:
         """Negative log marginal likelihood (``(*batch)``): K2/K3a + K3b."""

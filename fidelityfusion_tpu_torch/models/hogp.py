@@ -6,7 +6,9 @@ per-output-mode integer grids, all with one shared kernel; the NLML runs
 through per-mode eigendecompositions (`ops/kron.py`) and never forms the
 Kronecker matrix.  ``noise = 1 / noise_variance``.  `nll_with_state`
 returns an explicit `HOGPState` that `predict` consumes; `predict` gives
-the exact posterior diagonal in the shared eigenbasis.
+the exact posterior diagonal in the shared eigenbasis.  The Grams of the
+NLML are built and decomposed in float64 (`_grams`, `ops/kron.py`); the
+rest of the NLML, its backward and `predict` run in the targets' float32.
 
 Parameter leaves may carry a leading restart dimension R (the trainer's
 restart batch); the targets are then ``(n, d_1..d_M)`` shared or ``(R, n,
@@ -95,10 +97,15 @@ class HOGP:
                             for r in range(g.shape[0])])
 
     def _grams(self, params, x_train, y_var=None):
-        kp = params["kernel"]
-        jit = torch.tensor(self.jitter, device=x_train.device)
-        K0 = self.kernel.apply(kp, x_train, x_train, diag_add=jit, y_var=y_var)
-        return K0, [self._mode_gram(kp, g) for g in self.grids(params)]
+        """K_0 (with the jitter and ``y_var``) and the mode Grams, in float64
+        (see `ops/kron.py`: the Kronecker product amplifies their small
+        eigenvalues past a float32 Gram's rounding)."""
+        f64 = torch.float64
+        kp = tree_map(lambda a: a.to(f64), params["kernel"])
+        jit = torch.tensor(self.jitter, dtype=f64, device=x_train.device)
+        K0 = self.kernel.apply(kp, x_train.to(f64), x_train.to(f64), diag_add=jit,
+                               y_var=None if y_var is None else y_var.to(f64))
+        return K0, [self._mode_gram(kp, g.to(f64)) for g in self.grids(params)]
 
     def nll_with_state(self, params, x_train, y_train,
                        y_var: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, HOGPState]:
@@ -108,13 +115,14 @@ class HOGP:
         K0, K_modes = self._grams(params, x_train, y_var)
         Ks = [K0] + K_modes
         Kb, yb, nb = kron._batched(Ks, y_train, self.noise(params))
-        pairs = [kron.eigh_pairs(K) for K in Kb]
+        pairs = [kron.to_targets(kron.eigh_pairs(K), y_train) for K in Kb]
         eigvecs = [p[1] for p in pairs]
         loss, eigvals, A, T1 = kron._loss_and_saved([p[0] for p in pairs], eigvecs, yb, nb)
         g = kron.multi_mode_dot(T1 / A, eigvecs, modes=range(1, len(Ks) + 1))
         batched = y_train.ndim == len(Ks) + 1 or any(K.ndim == 3 for K in Ks)
         sq = (lambda t: t) if batched else (lambda t: t[0])  # noqa: E731
-        state = HOGPState(K_modes=tuple(K_modes), eigvecs=tuple(sq(V) for V in eigvecs),
+        state = HOGPState(K_modes=kron.to_targets(K_modes, y_train),
+                          eigvecs=tuple(sq(V) for V in eigvecs),
                           eigvals=tuple(sq(w) for w in eigvals), A=sq(A), g=sq(g))
         return sq(loss), state
 

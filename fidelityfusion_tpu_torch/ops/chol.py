@@ -141,7 +141,7 @@ def chol_inv(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         L, Wd = chol_inv_plain(A3)
     else:
         A3 = A3.contiguous()
-        cuda.require_cuda_f32("chol_inv", A3)
+        cuda.require_cuda("chol_inv", A3)
         B, n, _ = A3.shape
         L = torch.empty_like(A3)  # the kernel writes every element of L
         Wd = torch.empty((B, n // PANEL, PANEL, PANEL), dtype=A3.dtype, device=A3.device)
@@ -162,7 +162,7 @@ def chol_leaf(D: torch.Tensor, reps: int = 1) -> Tuple[torch.Tensor, torch.Tenso
     if not D.is_cuda:
         return _leaf_chol_inv_rec(D)
     D = D.contiguous()
-    cuda.require_cuda_f32("chol_leaf", D)
+    cuda.require_cuda("chol_leaf", D)
     L, W = torch.empty_like(D), torch.empty_like(D)
     if D.shape[0]:
         _CHOL.call("ff_chol_leaf", D.data_ptr(), L.data_ptr(), W.data_ptr(), D.shape[0],
@@ -183,7 +183,7 @@ def tri_inv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
     if not L.is_cuda:
         return tri_inv_plain(L3, Wd4).reshape(L.shape)
     L3, Wd4 = L3.contiguous(), Wd4.contiguous()
-    cuda.require_cuda_f32("tri_inv", L3, Wd4)
+    cuda.require_cuda("tri_inv", L3, Wd4)
     W = torch.empty_like(L3)  # the kernel writes every element of W
     if L3.shape[0] and n:
         T = torch.empty_like(L3)  # scratch for the products L21 W11

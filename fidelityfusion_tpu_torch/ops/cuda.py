@@ -144,9 +144,9 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_f32(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on one CUDA
-    device (what the kernels take)."""
+def require_cuda(name: str, *tensors, dtype=torch.float32) -> None:
+    """Raise unless every tensor is a contiguous ``dtype`` tensor on one
+    CUDA device (what the kernels take: float32, and K1 also float64)."""
     dev = None
     for t in tensors:
         if t is None:
@@ -157,7 +157,7 @@ def require_cuda_f32(name: str, *tensors) -> None:
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")

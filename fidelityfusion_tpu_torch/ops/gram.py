@@ -10,10 +10,13 @@ optional leading batch (the restart axis).  The output is
 ``(*batch, n1, n2)``.  ``diag_add``/``y_var`` act on i == j, so they are for
 square training Grams; pass neither for a cross-Gram.
 
-`gram` launches the kernel on CUDA tensors and runs `gram_plain` on CPU
+`gram` launches the kernel on CUDA tensors (float32, or float64: the
+Kronecker path's Grams, `models/hogp.py`) and runs `gram_plain` on CPU
 tensors.  Its backward is the VJP of `gram_plain` written out in O(n1 n2)
 memory (one n1 x n2 temporary per input dimension, never an n1 n2 d
-tensor); the Pallas kernel it replaces had no backward either.
+tensor), with exp(-d2/2) from the kernel again on CUDA tensors (one more
+K1 launch) and from `gram_plain` on CPU ones; the Pallas kernel it
+replaces had no backward either.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import torch
 
 from fidelityfusion_tpu_torch.ops import cuda
 
-_LIB = cuda.Library("gram.cu", {"ff_gram": [cuda.PTR] * 7 + [cuda.INT] * 4 + [cuda.PTR]})
+_ARGS = [cuda.PTR] * 7 + [cuda.INT] * 4 + [cuda.PTR]
+_LIB = cuda.Library("gram.cu", {"ff_gram": _ARGS, "ff_gram_f64": _ARGS})
+_ENTRY = {torch.float32: "ff_gram", torch.float64: "ff_gram_f64"}
 LAUNCHES = cuda.counter("gram")
 
 
@@ -54,7 +59,9 @@ def gram_plain(x1, x2, inv_ls, sv, diag_add=None, y_var=None):
 
 
 def _gram_cuda(x1, x2, inv_ls, sv, diag_add, y_var):
-    cuda.require_cuda_f32("gram", x1, x2, inv_ls, sv, diag_add, y_var)
+    if x1.dtype not in _ENTRY:
+        raise ValueError(f"gram: the kernel takes float32 or float64, got {x1.dtype}")
+    cuda.require_cuda("gram", x1, x2, inv_ls, sv, diag_add, y_var, dtype=x1.dtype)
     B, d = inv_ls.shape
     n1, n2 = x1.shape[0], x2.shape[0]
     if x1.shape[1] != d or x2.shape[1] != d:
@@ -63,11 +70,11 @@ def _gram_cuda(x1, x2, inv_ls, sv, diag_add, y_var):
         raise ValueError("gram: sv and diag_add must have shape (B,)")
     if y_var is not None and y_var.shape != (B, n1):
         raise ValueError(f"gram: y_var must have shape ({B}, {n1})")
-    out = torch.empty((B, n1, n2), dtype=torch.float32, device=x1.device)
+    out = torch.empty((B, n1, n2), dtype=x1.dtype, device=x1.device)
     if out.numel() == 0:
         return out
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _LIB.call("ff_gram", ptr(x1), ptr(x2), ptr(inv_ls), ptr(sv), ptr(diag_add),
+    _LIB.call(_ENTRY[x1.dtype], ptr(x1), ptr(x2), ptr(inv_ls), ptr(sv), ptr(diag_add),
               ptr(y_var), ptr(out), B, n1, n2, d, cuda.stream_ptr(x1.device))
     LAUNCHES.launches += 1
     return out
@@ -86,7 +93,10 @@ class _Gram(torch.autograd.Function):
     def backward(ctx, g):
         x1, x2, inv_ls, sv = ctx.saved_tensors
         need = ctx.needs_input_grad
-        E = gram_plain(x1, x2, inv_ls, torch.ones_like(sv))  # exp(-d2/2)
+        # exp(-d2/2): K1 itself on the card (sv = 1, no diagonal terms)
+        ones = torch.ones_like(sv)
+        E = (_gram_cuda(x1, x2, inv_ls, ones, None, None) if x1.is_cuda
+             else gram_plain(x1, x2, inv_ls, ones))
         g_sv = (g * E).sum((1, 2)) if need[3] else None
         H = g * E * sv[:, None, None]  # g * K
         g_ls = g_x1 = g_x2 = None

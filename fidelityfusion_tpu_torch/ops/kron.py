@@ -14,13 +14,18 @@ eigenpairs, so the backward is mode-product GEMMs only, with no autograd
 through ``eigh``.  The tracked variants warm-start mode 0's eigenbasis
 across training steps (`ops/spectral.py`) and share that backward.
 
-`eigh_pairs` departs from the JAX package in two ways.  It decomposes a
-float32 Gram in float64 (values and vectors come back in float32): a
-smooth SE Gram's small eigenvalues, which the Kronecker product
-multiplies by the other modes' eigenvalue products, are lost to a
-float32 ``eigh`` (cuSOLVER's more than LAPACK's: at the JAX bench's
-hogp1024 shape the float32 NLML was 5e-2 off float64 on an H100, 7e-3 on
-the CPU), while the Gram's own float32 rounding costs far less.  And
+The port departs from the JAX package in its precision here.  A smooth
+SE Gram's small eigenvalues, which the Kronecker product multiplies by
+the other modes' eigenvalue products (up to ~1e6 at hogp1024's (32, 32,
+32) grids), are lost both to a float32 ``eigh`` (at hogp1024 the float32
+NLML was 5e-2 off float64 on an H100, 7e-3 on the CPU) and to the
+float32 rounding of the Gram itself (1e-2 to 4e-2 off at trained
+hogp1024 parameters, on four data seeds; the arithmetic after the
+eigendecomposition costs 1e-7).  So `models/hogp.py` builds its Grams in
+float64 (K1's float64 instance on the card), `eigh_pairs` decomposes in
+float64, and `to_targets` brings the eigenpairs (and `predict`'s mode
+Grams) back to the targets' float32 for the rest of the NLML, its
+backward and the posterior.  And
 ``torch.linalg.eigh`` raises where the JAX package's returns NaN (it
 checks the solver's status, on the CPU and on the card), so a matrix with
 a non-finite entry is swapped for the identity before ``eigh`` and its
@@ -68,13 +73,19 @@ def multi_mode_dot(tensor: torch.Tensor, matrices: Sequence[torch.Tensor],
     return out
 
 
+def to_targets(tensors: Sequence[torch.Tensor], y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``tensors`` of the float64 Gram side (eigenpairs, mode Grams) in the
+    targets' dtype: the one place the port's precision split (module
+    docstring) is crossed back."""
+    return tuple(t.to(y.dtype) for t in tensors)
+
+
 def eigh_pairs(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric eigendecomposition (ascending values) of ``(K + K^T) / 2``,
     ``K`` ``(n, n)`` or ``(R, n, n)``, as ``jnp.linalg.eigh`` symmetrizes its
-    input: ``(values, vectors)`` in K's dtype.  A float32 ``K`` is
-    decomposed in float64 (see the module docstring).  A matrix with a
-    non-finite entry gives NaN values and identity vectors, and raises
-    nothing."""
+    input: ``(values, vectors)`` in K's dtype, decomposed in float64 (see
+    the module docstring).  A matrix with a non-finite entry gives NaN
+    values and identity vectors, and raises nothing."""
     bad = ~torch.isfinite(K).all(-1).all(-1)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     K = torch.where(bad[..., None, None], eye, 0.5 * (K + K.transpose(-1, -2)))
@@ -185,13 +196,15 @@ class _KronNLML(torch.autograd.Function):
             from fidelityfusion_tpu_torch.ops import spectral
 
             kind, step, a1, a2, sweeps = spec
-            V0b = V0 if V0.ndim == 3 else V0[None]
+            V0b = (V0 if V0.ndim == 3 else V0[None]).to(Kb[0].dtype)
             if kind == "static":
-                lam0, V0n, res = spectral.tracked_eigh(Kb[0], V0b, step, a1, sweeps)
+                tracked = spectral.tracked_eigh(Kb[0], V0b, step, a1, sweeps)
             else:
-                lam0, V0n, res = spectral.tracked_eigh_adaptive(Kb[0], V0b, last_res, step,
-                                                               a1, a2, sweeps)
+                tracked = spectral.tracked_eigh_adaptive(Kb[0], V0b, last_res, step, a1, a2,
+                                                         sweeps)
+            lam0, V0n, res = to_targets(tracked, y)
             pairs = [(lam0, V0n)] + [eigh_pairs(K) for K in Kb[1:]]
+        pairs = [to_targets(p, y) for p in pairs]
         eigvals = [p[0] for p in pairs]
         eigvecs = [p[1] for p in pairs]
         loss, eigvals, A, T1 = _loss_and_saved(eigvals, eigvecs, yb, nb)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -18,3 +20,11 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def synced_time(device: torch.device) -> float:
+    """``time.time()`` after the device's queued work has finished (a CUDA
+    synchronize; nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.time()

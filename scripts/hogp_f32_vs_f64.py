@@ -9,11 +9,12 @@ The problem is `bench.py:_hogp_setup(1024, (32, 32, 32))`: SE kernel,
 every parameter 1 at the start.  With ``--steps`` the port first trains
 it as `chip_smoke.py` does (tracked spectrum, refresh every 64, lr 1e-2).
 At the initial (and the trained) parameters it prints the exact NLML
-(`nll`) in float32 (the port decomposes its float32 Grams in float64), in
-float32 with a float32 ``eigh`` (as the JAX package does) and in float64,
-with their distances to float64 relative to max(|NLML|, 1): a float32
-``eigh`` does not resolve K_0's small eigenvalues, which the Kronecker
-product multiplies by the other modes' eigenvalue products.
+(`nll`) in float32 (the port builds and decomposes its Grams in float64),
+from float32 Grams decomposed in float64, from float32 Grams with a
+float32 ``eigh`` (as the JAX package does) and in float64, with their
+distances to float64 relative to max(|NLML|, 1): neither a float32 Gram
+nor a float32 ``eigh`` resolves K_0's small eigenvalues, which the
+Kronecker product multiplies by the other modes' eigenvalue products.
 """
 
 import argparse
@@ -36,8 +37,9 @@ def setup(device):
 
 
 def port_nlls(hogp, p, x, y):
-    """float32 (the port: every Gram decomposed in float64), float32 with a
-    float32 ``eigh`` (the JAX package's), float64 (on the CPU)."""
+    """float32 (the port: every Gram built and decomposed in float64),
+    float32 Grams decomposed in float64, float32 Grams with a float32
+    ``eigh`` (the JAX package's), float64 (on the CPU)."""
     from fidelityfusion_tpu_torch.ops import kron
     from fidelityfusion_tpu_torch.utils.tree import tree_map
 
@@ -46,10 +48,14 @@ def port_nlls(hogp, p, x, y):
         out["port float32"] = float(hogp.nll(p, x, y))
         K0, K_modes = hogp._grams(p, x)
         Kb, yb, nb = kron._batched([K0] + K_modes, y, hogp.noise(p))
-        pairs = [torch.linalg.eigh(0.5 * (K + K.transpose(-1, -2))) for K in Kb]
-        out["port float32, eigh in float32"] = float(kron._loss_and_saved(
+        Kb = [K.float() for K in Kb]
+        pairs = [kron.eigh_pairs(K) for K in Kb]
+        out["port float32, float32 Grams"] = float(kron._loss_and_saved(
             [q[0] for q in pairs], [q[1] for q in pairs], yb, nb)[0][0])
-        # float64 on the CPU (the kernels take float32)
+        pairs = [torch.linalg.eigh(0.5 * (K + K.transpose(-1, -2))) for K in Kb]
+        out["port float32, float32 Grams, eigh in float32"] = float(kron._loss_and_saved(
+            [q[0] for q in pairs], [q[1] for q in pairs], yb, nb)[0][0])
+        # float64 on the CPU
         p64 = tree_map(lambda a: a.double().cpu(), p)
         out["port float64"] = float(hogp.nll(p64, x.double().cpu(), y.double().cpu()))
     return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs `chip_smoke.py`'s kernel phase, or its training steps, on the port in a given tree, on one GPU.
 
-    python3 scripts/time_torch_kernels.py [--root DIR] [--steps]
+    python3 scripts/time_torch_kernels.py [--root DIR] [--steps | --kron]
 
 Imports `fidelityfusion_tpu_torch` from DIR (default: this checkout), and
 the driver code from this checkout's `chip_smoke.py`, so the same code runs
@@ -18,7 +18,12 @@ and power limit, then:
   profiler in the process: the unbatched n = 2048 SE and ARD fits once to
   warm up, chip_smoke's main path (`train_AR`, 200 Adam steps a stage),
   and the unbatched fits again; the last line is a JSON object of ms per
-  step.
+  step;
+- with ``--kron``, chip_smoke's hogp1024 fit (130 tracked steps) on the
+  data of seeds 0-3 and GAR (200 Adam steps a stage, 4 restarts), warmed
+  up by one hogp1024 fit first: ms per step, and each fit's NLML through
+  the kernels against the plain float64 one; the last line is a JSON
+  object of both.
 
 Imports nothing of JAX.
 """
@@ -59,12 +64,34 @@ def step_times(torch, smoke, device, root) -> int:
     return 1 if smoke.FAILURES else 0
 
 
+def kron_times(torch, smoke, device, root) -> int:
+    report = {"launches_by_path": {}, "kron": {}}
+    smoke.hogp1024_path(torch, device, report)  # warm-up
+    hogp = []
+    for seed in range(4):
+        smoke.hogp1024_path(torch, device, report, seed=seed)
+        h = report["kron"]["HOGP"]
+        hogp.append(dict(seed=seed, ms_per_step=h["ms_per_step"],
+                         tracked_step_ms=h["tracked_step_ms"], nll=h["final_nll"],
+                         rel_err_vs_f64=abs(h["final_nll"] - h["plain64_nll"])
+                         / max(abs(h["plain64_nll"]), 1.0)))
+    smoke.gar_path(torch, device, 200, report)
+    print(json.dumps({
+        "root": str(root), "hogp1024": hogp,
+        "gar_stage_ms_per_step": [st["ms_per_step"] for st in report["kron"]["GAR"]["stages"]],
+        "failures": len(smoke.FAILURES)}), flush=True)
+    return 1 if smoke.FAILURES else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=HERE,
                         help="checkout whose fidelityfusion_tpu_torch is run")
-    parser.add_argument("--steps", action="store_true",
-                        help="time training steps instead of the kernels")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--steps", action="store_true",
+                      help="time training steps instead of the kernels")
+    mode.add_argument("--kron", action="store_true",
+                      help="time the Kronecker path's fits (hogp1024, GAR) instead")
     args = parser.parse_args(argv)
 
     import torch
@@ -77,13 +104,14 @@ def main(argv=None) -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     device = torch.device("cuda")
 
     from fidelityfusion_tpu_torch.ops import chol, cuda, gram
 
     cuda.build([gram._LIB, chol._CHOL, chol._TRI])
     print(f"root {args.root}  {smoke.smi_line()}", flush=True)
-    run = step_times if args.steps else kernel_times
+    run = step_times if args.steps else kron_times if args.kron else kernel_times
     return run(torch, smoke, device, args.root)
 
 

@@ -49,6 +49,30 @@ def test_gram_kernel_matches_plain(dev, n1, n2, d):
     torch.testing.assert_close(got, gram_plain(x1, x2, inv_ls, sv, da, yv), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("n1,n2,d", [(1024, 1024, 4), (32, 32, 1), (130, 77, 2), (96, 96, 3)])
+def test_gram_kernel_float64_matches_plain(dev, n1, n2, d):
+    """K1's float64 instance (the Kronecker path's Grams): register path
+    (d = 1, 2, 4) and chunked path (d = 3), ragged shapes, the nugget on
+    square Grams, against the plain version in float64; its backward too."""
+    from fidelityfusion_tpu_torch.ops.gram import gram, gram_plain
+
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(1)
+    x1 = torch.rand((n1, d), generator=g, dtype=f64).to(dev)
+    x2 = x1 if n1 == n2 else torch.rand((n2, d), generator=g, dtype=f64).to(dev)
+    inv_ls = (torch.rand((2, d), generator=g, dtype=f64) + 0.5).to(dev).requires_grad_()
+    sv = torch.tensor([0.7, 1.3], dtype=f64, device=dev).requires_grad_()
+    da = torch.tensor([1e-6, 1e-3], dtype=f64, device=dev) if n1 == n2 else None
+    got = gram(x1, x2, inv_ls, sv, diag_add=da)
+    want = gram_plain(x1, x2, inv_ls, sv, da)
+    assert got.dtype == f64
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-15)
+    G = torch.randn(got.shape, generator=g, dtype=f64).to(dev)
+    for a, b in zip(torch.autograd.grad((got * G).sum(), (inv_ls, sv)),
+                    torch.autograd.grad((want * G).sum(), (inv_ls, sv))):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
 def test_gram_kernel_at_nar_stage_shape(dev):
     """NAR's stage-1 training Gram: 4 restarts, n = 512, d = 2 ([x, y_low]),
     nugget and y_var, on the register path; the diagonal is exact."""
@@ -297,3 +321,89 @@ def test_legacy_cigp_on_the_card_matches_cpu(dev):
     torch.testing.assert_close(lg, lc, rtol=0, atol=1e-3 * max(lc.abs().max().item(), 300))
     torch.testing.assert_close(mg, mc, rtol=0, atol=1e-3 * mc.abs().max().item())
     torch.testing.assert_close(vg, vc, rtol=0, atol=1e-3 * sv)
+
+
+def test_bo_ucb_iteration_on_the_card_matches_cpu(dev):
+    """One UCB iteration of `mf_bo_discrete` (iteration 0, seed 0, the
+    AR surrogate on Forrester's {1: 10, 2: 4} design) on the card and on
+    the CPU, from the same starts: the same fidelity, and the CPU's
+    acquisition at the card's x within 1e-3 (relative) of the CPU's best;
+    K1, K2, K3a and K3b launched on the card."""
+    import math
+
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.bo.loop import acquire, fit_surrogate, generator
+    from fidelityfusion_tpu_torch.data.objectives import Forrester
+    from fidelityfusion_tpu_torch.ops import cuda
+
+    f = Forrester(2)
+    xs, ys = f.initiate_data({1: 10, 2: 4}, 0)
+    beta = 0.2 * math.log(1.1)
+    f_best = float(max(np.max(y) for y in ys))
+    out = []
+    for device in (torch.device("cpu"), dev):
+        cuda.reset_launch_counts()
+        model, dm = fit_surrogate(f, list(xs), list(ys), device=device)
+        out += [acquire(model, dm, "UCB", beta, f_best, [[0.0, 1.0]], [0.01, 0.01],
+                                   generators=[generator(0, 0, s) for s in range(2)])]
+        counts = cuda.launch_counts()
+    (x_cpu, s_cpu, v_cpu, scores), (x_card, s_card, _, _) = out
+    assert s_card == s_cpu
+    with torch.no_grad():  # the acquisition of x: its best score over the fidelities
+        v = max(float(score(torch.as_tensor(x_card), state, torch.tensor(f_best)))
+                for score, state in scores)
+    assert abs(v - v_cpu) <= 1e-3 * abs(v_cpu), (v, v_cpu)
+    assert all(counts.get(k, 0) > 0 for k in ("gram", "chol", "chol_batched", "tri_inv")), counts
+
+
+def test_ar_posterior_x_gradient_on_the_card_matches_cpu(dev):
+    """`ARPosterior` over one AR's parameters and stage datasets, exported
+    on the card and on the CPU: mean, variance and the x-gradient of their
+    sum at 64 points within 1e-4 of their scale (the variance's: the
+    prior's, at a far point); the card's backward
+    launches K1 (a forward and a backward a stage) and never `gram_plain`."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.bo.loop import fit_surrogate
+    from fidelityfusion_tpu_torch.convert import load_state
+    from fidelityfusion_tpu_torch.data.objectives import Forrester
+    from fidelityfusion_tpu_torch.models.ar import AR
+    from fidelityfusion_tpu_torch.ops import cuda, gram
+    from fidelityfusion_tpu_torch.ops.kernels import SquaredExponentialKernel
+    from fidelityfusion_tpu_torch.utils.tree import tree_map
+
+    f = Forrester(2)
+    xs, ys = f.initiate_data({1: 10, 2: 4}, 1)
+    cpu_model, dm = fit_surrogate(f, list(xs), list(ys), train_iters=30, device="cpu")
+    card_model = AR(2, [SquaredExponentialKernel() for _ in range(2)], if_nonsubset=True,
+                    device=dev)
+    load_state(card_model, tree_map(lambda a: a.numpy(), cpu_model.params),
+               cpu_model.stage_norm)
+    x = np.linspace(0.0, 1.0, 64, dtype=np.float32).reshape(-1, 1)
+    out = []
+    plain_calls = []
+    real_plain = gram.gram_plain
+    for model in (cpu_model, card_model):
+        post, state = model.export_posterior(dm, pad_multiple=16)
+        xt = torch.as_tensor(x, device=model.device).requires_grad_()
+        if model is card_model:
+            gram.gram_plain = lambda *a, **k: plain_calls.append(1) or real_plain(*a, **k)
+            cuda.reset_launch_counts()
+        try:
+            mean, var = post(state, xt)
+            (g,) = torch.autograd.grad(mean.sum() + var.sum(), xt)
+            if model is card_model:
+                torch.cuda.synchronize()
+                k1 = cuda.launch_counts().get("gram", 0)
+        finally:
+            gram.gram_plain = real_plain
+        out.append([a.detach().cpu() for a in (mean, var, g)])
+    with torch.no_grad():
+        post_c, state_c = cpu_model.export_posterior(dm)
+        prior = post_c(state_c, torch.tensor([[1e3]]))[1].item()
+    (mc, vc, gc), (md, vd, gd) = out
+    torch.testing.assert_close(md, mc, rtol=0, atol=1e-4 * mc.abs().max().item())
+    torch.testing.assert_close(vd, vc, rtol=0, atol=1e-4 * prior)
+    torch.testing.assert_close(gd, gc, rtol=0, atol=1e-4 * gc.abs().max().item())
+    assert k1 == 4 and not plain_calls, (k1, len(plain_calls))

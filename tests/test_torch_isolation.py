@@ -38,11 +38,14 @@ def test_port_file_imports_no_jax(path):
 
 
 NEW_MODULES = ("models.joint", "models.legacy", "utils.config", "utils.logging",
-               "utils.profiling", "utils.checkpoint", "ops.kernels", "models.cigp", "convert")
+               "utils.profiling", "utils.checkpoint", "ops.kernels", "models.cigp", "convert",
+               "data.cost", "data.objectives", "bo", "bo.acq", "bo.optimize", "bo.mf_acq",
+               "bo.cfkg", "bo.strategies", "bo.mace", "bo.continuous", "bo.loop",
+               "bo.continuous_loop")
 
 
 def test_port_module_imports_pull_in_no_jax():
-    """Each module of the joint/legacy slice, imported one after the other
+    """Each module of the joint/legacy and BO slices, imported one after the other
     in a fresh interpreter, loads neither JAX nor anything of the JAX
     package (checked after every import, so a failure names its module)."""
     code = ("import importlib, json, sys\n"

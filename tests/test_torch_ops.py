@@ -95,6 +95,36 @@ def test_gram_input_and_diag_gradients_f64():
         np.testing.assert_allclose(g.numpy(), a.grad.numpy(), rtol=1e-9, atol=1e-12)
 
 
+@pytest.mark.parametrize("square", [False, True], ids=["cross", "square_with_diag"])
+def test_gram_backward_gradcheck_f64(square):
+    """K1's hand-written backward (exp(-d2/2) from `gram_plain` on the CPU,
+    from the kernel on the card) against `torch.autograd.gradcheck`'s
+    finite differences in float64, in x1, x2, the inverse length scales and
+    sv (and, square, the diagonal terms); the gradient also equals autograd
+    through `gram_plain` to 1e-12."""
+    rng = np.random.default_rng(11)
+    n1, n2 = (6, 6) if square else (5, 7)
+    x1 = _t(rng.standard_normal((n1, 2))).requires_grad_()
+    x2 = x1 if square else _t(rng.standard_normal((n2, 2))).requires_grad_()
+    inv_ls = _t(rng.random((2, 2)) + 0.5).requires_grad_()
+    sv = _t(rng.random(2) + 0.5).requires_grad_()
+    extra = ((_t(rng.random(2)).requires_grad_(), _t(rng.random((2, n1))).requires_grad_())
+             if square else ())
+    inputs = (x1, inv_ls, sv) + extra if square else (x1, x2, inv_ls, sv)
+
+    def f(*a):
+        if square:
+            return gram(a[0], a[0], a[1], a[2], diag_add=a[3], y_var=a[4])
+        return gram(*a)
+
+    assert torch.autograd.gradcheck(f, inputs, eps=1e-6, atol=1e-8, rtol=1e-6)
+    G = _t(rng.standard_normal((2, n1, n2)))
+    got = torch.autograd.grad((f(*inputs) * G).sum(), inputs)
+    want = torch.autograd.grad((gram_plain(x1, x2, inv_ls, sv, *extra) * G).sum(), inputs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10, atol=1e-12)
+
+
 def test_gram_plain_matches_retired_pallas_gram():
     """K1's plain version against `pallas_gram.gram_se` in interpret mode
     (n = 256, block 128; the tests/test_pallas.py bars)."""
