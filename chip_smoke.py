@@ -18,7 +18,9 @@ prints no result line):
    float64 (the Kronecker path's Grams), and at the BO loop's shapes
    (32-row stage Grams, the 32 x 16 cross-Gram and its x-gradient, and
    the continuous loop's d = 3: an 18-row Gram and the 18 x 8 cross-Gram
-   with its x-gradient); K2 and K3a also at one 64-row panel, full and
+   with its x-gradient), and at the sweep grid's widest zoo input, d = 10
+   (a (4, 100) Gram and the 100 x 100 cross-Gram, the chunked path); K2
+   and K3a also at one 64-row panel, full and
    holding a 32-row Sigma (the BO loop's padded stages), each over 64
    Grams against the plain version in float64, within twice the plain
    float32 version's error; K2 also
@@ -71,7 +73,25 @@ prints no result line):
    of its best); ms per acquisition Adam step (K1 forward and backward a
    stage a step, `gram_plain` never called) and the `ARPosterior` query
    latency at 16 and 1000 points;
-9. the device kernels of one K2/K3a call and one K3b call, under
+9. the experiments, each method's sweep driven alike: the grid protocol
+   (`experiments/sweep.py:run_sweep`) on forrester12, seed 0, n_high 4, 8,
+   16, 32 at the harness's defaults (100 low rows, 100 test points, 200
+   steps, 4 restarts, lr 5e-2; CAR at `train_CAR`'s 1e-2, where its
+   restarts settle) for AR, ResGP, NAR, CAR, GAR and CIGAR,
+   CSVs to a temporary directory (header, 4 rows, every metric finite;
+   K1, K3a and K3b launched, GAR K1), the RMSE at n_high 16 and 32 within
+   1.25 x the JAX harness's + 0.01 std(y_test) (`SWEEP_JAX_RMSE`, from
+   `scripts/sweep_jax_bars.py`), the AR cell at n_high 32 again with
+   ``device="cpu"`` (RMSE within 5%); the field protocol
+   (`run_gar_field_sweep`, GAR and CIGAR on Poisson, non-aligned,
+   resolutions (8, 16), n_high 8 and 32, the same bar at 32);
+   `MLPTrainingObjective(2)` and `CNNTrainingObjective(2)` at 4
+   hyperparameter rows and s = 1, 2 on the card against
+   ``device="cpu"`` (accuracies within 1/n_val, validation logits within
+   1e-3 of their max), ms per `get_data` row; `mf_bo_discrete` on the MLP
+   objective (AR, 5 iterations; incumbents in [0, 1] never fall, cost
+   grows, K1, K2, K3a and K3b launched);
+10. the device kernels of one K2/K3a call and one K3b call, under
    `torch.profiler` (last: tracing slows every launch after it).
 
 The second-to-last line is `{"kernels": [...]}`, the last
@@ -320,7 +340,8 @@ def gram_bo_checks(torch, device, gen, library_gram):
           f"K1 cross-gram {n}x{m} d=1 and its x-gradient (BO acquisition): max abs err "
           f"{err_c:.3e}")
     xd = xs.detach()
-    err3, ms3, plain_ms3 = gram_bo_d3_checks(torch, device, gen)
+    err3, ms3, plain_ms3, b3_ms, b3_by, lib_ms3 = gram_bo_d3_checks(torch, device, gen,
+                                                                     library_gram)
     ms = device_ms(torch, lambda: G.gram(x, x, inv_ls, sv, diag_add=da))
     plain_ms = device_ms(torch, lambda: G.gram_plain(x, x, inv_ls, sv, da))
     lib_ms = device_ms(torch, lambda: library_gram(x, x, inv_ls, sv, da))
@@ -338,18 +359,19 @@ def gram_bo_checks(torch, device, gen, library_gram):
                 cross_shape=f"{n}x{m} d=1", cross_ms=cross_ms, cross_bound_ms=bc_ms,
                 cross_plain_ms=cross_plain_ms, cross_library_ms=cross_lib_ms,
                 cross_max_abs_err=err_c, d3_shape="n=18 d=3, cross 18x8", d3_ms=ms3,
-                d3_plain_ms=plain_ms3, d3_max_abs_err=err3)
+                d3_plain_ms=plain_ms3, d3_max_abs_err=err3, d3_bound_ms=b3_ms,
+                d3_bound_by=b3_by, d3_library_ms=lib_ms3)
 
 
-def gram_bo_d3_checks(torch, device, gen):
+def gram_bo_d3_checks(torch, device, gen, library_gram):
     """K1 at the continuous BO loop's shapes: FIDES trains on the joint
     (x, z) input of Branin, d = 3, so K1 runs its chunked path (not the
     register path of d = 1, 2, 4).  An unbatched training Gram of 18 rows
     (the loop's 8 initial points and 10 iterations) with its noise nugget,
     and the cross-Gram against the UCB ascent's 8 starts at z = 1 with its
     gradient in the starts, against the plain version at rtol 1e-4, atol
-    1e-5.  Returns (max abs err, kernel us, plain us) of the training
-    Gram, by device time."""
+    1e-5.  Returns (max abs err, kernel ms, plain ms, bound ms, bound by,
+    `cdist` ms) of the training Gram, by device time."""
     from fidelityfusion_tpu_torch.ops import gram as G
 
     n, m = 18, 8
@@ -375,9 +397,47 @@ def gram_bo_d3_checks(torch, device, gen):
           f"{err_c:.3e}")
     ms = device_ms(torch, lambda: G.gram(x, x, inv_ls, sv, diag_add=da))
     plain_ms = device_ms(torch, lambda: G.gram_plain(x, x, inv_ls[None], sv[None], da[None]))
+    lib_ms = device_ms(torch, lambda: library_gram(x, x, inv_ls[None], sv[None], da[None]))
+    b_ms, b_by = bound(n * n * (3 * 3 + 3), 4 * (2 * n * 3 + (3 + 2) + n * n))
     print(f"K1 n={n} d=3 (continuous BO): kernel {ms * 1e3:.3f} us by device time  plain "
-          f"{plain_ms * 1e3:.3f} us", flush=True)
-    return max(err, err_c), ms, plain_ms
+          f"{plain_ms * 1e3:.3f} us  cdist {lib_ms * 1e3:.3f} us  bound {b_ms * 1e3:.5f} us "
+          f"({b_by})", flush=True)
+    return max(err, err_c), ms, plain_ms, b_ms, b_by, lib_ms
+
+
+def gram_wide_checks(torch, device, gen, library_gram):
+    """K1 at the sweep grid's widest zoo input, d = 10 (`toal`, `shuo16`;
+    the chunked path): a restart batch of training Grams at the harness's
+    100 low-fidelity rows with the noise nugget, and the 100 x 100
+    cross-Gram of the test forward, against the plain version at rtol
+    1e-4, atol 1e-5; the square one timed by device time beside its
+    bound, plain version and `cdist`."""
+    from fidelityfusion_tpu_torch.ops import gram as G
+
+    R, n, d, m = 4, 100, 10, 100
+    x = torch.randn((n, d), generator=gen).to(device)
+    inv_ls = (0.1 + 0.5 * torch.rand((R, d), generator=gen)).to(device)
+    sv = torch.linspace(0.5, 2.0, R).to(device)
+    da = torch.full((R,), NOISE, device=device)
+    close = lambda a, b: bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())  # noqa: E731
+    got, want = G.gram(x, x, inv_ls, sv, diag_add=da), G.gram_plain(x, x, inv_ls, sv, da)
+    err = (got - want).abs().max().item()
+    check(close(got, want) and bool((got.diagonal(dim1=1, dim2=2) == (sv + da)[:, None]).all()),
+          f"K1 gram R={R} n={n} d={d} (sweep grid, widest zoo input): max abs err {err:.3e} "
+          f"(rtol 1e-4, atol 1e-5), diagonal exact")
+    xt = torch.randn((m, d), generator=gen).to(device)
+    got_c, want_c = G.gram(x, xt, inv_ls[:1], sv[:1]), G.gram_plain(x, xt, inv_ls[:1], sv[:1])
+    err_c = (got_c - want_c).abs().max().item()
+    check(close(got_c, want_c), f"K1 cross-gram {n}x{m} d={d}: max abs err {err_c:.3e}")
+    ms = device_ms(torch, lambda: G.gram(x, x, inv_ls, sv, diag_add=da))
+    plain_ms = device_ms(torch, lambda: G.gram_plain(x, x, inv_ls, sv, da))
+    lib_ms = device_ms(torch, lambda: library_gram(x, x, inv_ls, sv, da))
+    b_ms, b_by = bound(R * n * n * (3 * d + 3), 4 * (2 * n * d + R * (d + 2) + R * n * n))
+    print(f"K1 R={R} n={n} d={d} (chunked path): kernel {ms * 1e3:.3f} us by device time  "
+          f"plain {plain_ms * 1e3:.3f} us  cdist {lib_ms * 1e3:.3f} us  bound "
+          f"{b_ms * 1e3:.4f} us ({b_by})", flush=True)
+    return dict(shape=f"R={R} n={n} d={d}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, max_abs_err=max(err, err_c))
 
 
 def gram_f64_checks(torch, device, gen, library_gram):
@@ -516,6 +576,8 @@ def kernel_checks(torch, device, report):
                                             library_gram)
     report["gram"]["bo"] = gram_bo_checks(torch, device, torch.Generator().manual_seed(2),
                                           library_gram)
+    report["gram"]["d10"] = gram_wide_checks(torch, device, torch.Generator().manual_seed(3),
+                                             library_gram)
 
     def chol_case(key, R, n, batched):
         # one panel (the BO loop's shape) from its own generator, so the
@@ -2002,6 +2064,181 @@ def bo_paths(torch, device, report):
     print(f"BO phase: {time.perf_counter() - t:.1f} s; final incumbents {finals}", flush=True)
 
 
+SWEEP_METHODS = ("AR", "ResGP", "NAR", "CAR", "GAR", "CIGAR")
+SWEEP_N_HIGH = (4, 8, 16, 32)
+# the JAX harness's RMSE on each cell the bars hold (`scripts/sweep_jax_bars.py`,
+# on the CPU): grid forrester12 seed 0 at the harness's defaults (CAR at
+# lr 1e-2, `SWEEP_LR`), and the field protocol (Poisson, non-aligned,
+# resolutions (8, 16)) at n_high 32
+SWEEP_JAX_RMSE = {
+    "grid AR 16": 0.0765070462497497, "grid AR 32": 0.05722183214987079,
+    "grid ResGP 16": 0.13129789923037805, "grid ResGP 32": 0.07343905730065985,
+    "grid NAR 16": 0.6913885825587952, "grid NAR 32": 0.8425537141799044,
+    "grid CAR 16": 0.12592339192389215, "grid CAR 32": 0.0744827445317785,
+    "grid GAR 16": 1.2630750139780471, "grid GAR 32": 0.7943589255342116,
+    "grid CIGAR 16": 0.08056134611723953, "grid CIGAR 32": 0.05722183931300523,
+    "field GAR 32": 0.0010450848623144993, "field CIGAR 32": 0.00048792246738334964,
+}
+# staged CAR at `train_CAR`'s lr: at the grid's 5e-2 its restarts do not
+# settle (stage-0 finals from -200 to -351 by restart, moving with 1e-7 of
+# the data; the card's n_high 32 cell ended at RMSE 0.240, the CPU's at
+# 0.033, the JAX harness's at 0.026: `scripts/car_lr_probe.py`)
+SWEEP_LR = {"CAR": 1e-2}
+SWEEP_COLUMNS = ["train_sample_num", "rmse", "nrmse", "r2", "nll", "time"]
+
+
+def _sweep_csv_checks(label, path, n_rows):
+    """The reference CSV: its header, ``n_rows`` rows, every metric finite."""
+    import csv
+
+    import numpy as np
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    check(rows[0] == SWEEP_COLUMNS, f"{label}: CSV header {','.join(rows[0])}")
+    vals = np.asarray(rows[1:], float)
+    check(vals.shape == (n_rows, len(SWEEP_COLUMNS)) and bool(np.isfinite(vals).all()),
+          f"{label}: {len(rows) - 1} rows (want {n_rows}), every metric finite")
+
+
+def _sweep_bar(label, rmse, key, y_test):
+    """RMSE <= 1.25 x the JAX harness's on the same cell + 0.01 std(y_test)."""
+    bar = 1.25 * SWEEP_JAX_RMSE[key] + 0.01 * float(y_test.std())
+    check(rmse <= bar, f"{label}: RMSE {rmse:.5f} <= {bar:.5f} (1.25 x JAX "
+                       f"{SWEEP_JAX_RMSE[key]:.5f} + 0.01 std(y_test))")
+
+
+def sweep_paths(torch, device, out, report):
+    """The grid protocol at the reference's own sizes (forrester12, seed 0,
+    n_high 4-32, the harness's defaults, CAR at lr 1e-2) for every method,
+    then the field protocol (GAR, CIGAR on Poisson, non-aligned,
+    resolutions (8, 16), n_high 8 and 32), each method's sweep with the
+    launch counts set to 0 just before it and read just after; one AR cell
+    again with ``device="cpu"``."""
+    from fidelityfusion_tpu_torch.experiments import load_mfdata, sweep
+
+    rep = report["experiments"]
+    y_test = {n: load_mfdata.load_data("forrester12", n_train_high=n, seed=0)["y_test"]
+              for n in SWEEP_N_HIGH}
+    for method in SWEEP_METHODS:
+        label = f"sweep grid {method}"
+        rows, sec, counts = _timed_run(torch, lambda: sweep.run_sweep(
+            [method], ["forrester12"], seeds=(0,), n_high_grid=SWEEP_N_HIGH, outdir=out,
+            lr=SWEEP_LR.get(method, 5e-2), device=device))
+        report["launches_by_path"][label] = counts
+        _sweep_csv_checks(label, Path(out) / "forrester12" / f"{method}_seed_0.csv", 4)
+        cascade_launches(label, ("gram",) if method == "GAR" else
+                         ("gram", "chol_batched", "tri_inv"), counts)
+        for row in rows:
+            if row["n_high"] >= 16:
+                _sweep_bar(f"{label} n_high {row['n_high']}", row["rmse"],
+                           f"grid {method} {row['n_high']}", y_test[row["n_high"]])
+        walls = [row["time"] for row in rows]
+        rep[label] = {"median_cell_s": _median(walls), "seconds": sec,
+                      "rmse": [row["rmse"] for row in rows]}
+        print(f"{label}: RMSE by n_high {[round(r['rmse'], 5) for r in rows]}; cell walls "
+              f"{[round(w, 3) for w in walls]} s (median {_median(walls):.3f}); {sec:.2f} s; "
+              f"launches {counts}", flush=True)
+        if method == "AR":
+            card = rows[-1]
+            cpu = sweep.run_single("AR", "forrester12", 0, 32, device="cpu")
+            rel = abs(card["rmse"] - cpu["rmse"]) / cpu["rmse"]
+            rep["AR n_high 32 card vs cpu"] = {"card": card["rmse"], "cpu": cpu["rmse"]}
+            print(f"sweep AR n_high 32: RMSE card {card['rmse']:.6f}, cpu {cpu['rmse']:.6f} "
+                  f"({rel:.2e} relative); cell wall card {card['time']:.3f} s, cpu "
+                  f"{cpu['time']:.3f} s", flush=True)
+            check(rel <= 0.05, f"sweep AR n_high 32: card and cpu RMSE within 5% ({rel:.2e})")
+    fixture = sweep._field_fixture("poisson", 0, 100, 32, 100, "non-aligned", (8, 16))
+    for method in ("GAR", "CIGAR"):
+        label = f"sweep field {method}"
+        rows, sec, counts = _timed_run(torch, lambda: sweep.run_gar_field_sweep(
+            methods=(method,), seeds=(0,), n_high_grid=(8, 32), variant="non-aligned",
+            resolutions=(8, 16), outdir=out, device=device))
+        report["launches_by_path"][label] = counts
+        _sweep_csv_checks(label, Path(out) / "poisson_non-aligned" / f"{method}_seed_0.csv", 2)
+        cascade_launches(label, ("gram",) if method == "GAR" else
+                         ("gram", "chol_batched", "tri_inv"), counts)
+        _sweep_bar(f"{label} n_high 32", rows[-1]["rmse"], f"field {method} 32", fixture[-1])
+        walls = [row["time"] for row in rows]
+        rep[label] = {"median_cell_s": _median(walls), "seconds": sec,
+                      "rmse": [row["rmse"] for row in rows]}
+        print(f"{label}: RMSE by n_high (8, 32) {[round(r['rmse'], 5) for r in rows]}; cell "
+              f"walls {[round(w, 3) for w in walls]} s; {sec:.2f} s; launches {counts}",
+              flush=True)
+
+
+def objective_checks(torch, device, report):
+    """`MLPTrainingObjective(2)` and `CNNTrainingObjective(2)` at 4
+    hyperparameter rows and s = 1, 2 on the card and with ``device="cpu"``
+    (the same seeded data and initial weights): validation accuracies
+    within 1/n_val, final validation logits within 1e-3 of their max |.|;
+    ms per `get_data` row on the card."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.data.real_app import CNNTrainingObjective, MLPTrainingObjective
+
+    rep = report["experiments"]
+    for cls in (MLPTrainingObjective, CNNTrainingObjective):
+        name = cls.__name__
+        card, cpu = cls(2, device=device), cls(2, device="cpu")
+        rows = card._sample(np.random.default_rng(0), 4)
+        n_val = len(cpu.y_val)
+        for s in (1, 2):
+            errs, accs = [], []
+            for a, b in rows:
+                lg = card._val_logits(a, b, 10 * s).cpu()
+                lc = cpu._val_logits(a, b, 10 * s)
+                errs.append((lg - lc).abs().max().item() / lc.abs().max().item())
+                accs.append((card.accuracy(lg.to(device)), cpu.accuracy(lc)))
+            dacc = max(abs(g - c) for g, c in accs)
+            check(max(errs) <= 1e-3 and dacc <= 1.0 / n_val,
+                  f"{name} s={s}, 4 rows card vs cpu: logits within {max(errs):.2e} of their "
+                  f"max (<= 1e-3), accuracies within {dacc:.4f} (<= 1/{n_val})")
+            t = time.perf_counter()
+            y = card.get_data(rows, s)
+            ms = (time.perf_counter() - t) / len(rows) * 1e3
+            check(y.shape == (4, 1) and bool(((y >= 0) & (y <= 1)).all()),
+                  f"{name} get_data s={s}: (4, 1) accuracies in [0, 1]")
+            rep[f"{name} ms per row s={s}"] = ms
+            print(f"{name} s={s} ({10 * s} epochs): {ms:.2f} ms per get_data row on the card "
+                  f"(host clock, 4 rows); accuracies {[round(g, 4) for g, _ in accs]}",
+                  flush=True)
+
+
+def experiment_paths(torch, device, report):
+    """The experiments phase: the sweep protocols, the real-application
+    objectives card against cpu, and `mf_bo_discrete` on the MLP objective
+    (AR, 5 iterations from the {1: 10, 2: 4} design) with the launch
+    counts set to 0 just before it and read just after."""
+    import tempfile
+
+    from fidelityfusion_tpu_torch.bo.loop import mf_bo_discrete
+    from fidelityfusion_tpu_torch.data.real_app import MLPTrainingObjective
+
+    t = time.perf_counter()
+    report["experiments"] = {}
+    with tempfile.TemporaryDirectory() as out:
+        sweep_paths(torch, device, out, report)
+    objective_checks(torch, device, report)
+    label = "BO discrete on MLPTrainingObjective"
+    rec, sec, counts = _timed_run(torch, lambda: mf_bo_discrete(
+        MLPTrainingObjective(2, device=device), model_name="AR", bo_iterations=5,
+        init_index={1: 10, 2: 4}, device=device))
+    _bo_record_checks(label, rec, 5)
+    check(all(0.0 <= v <= 1.0 for v in rec["incumbents"]),
+          f"{label}: every incumbent an accuracy in [0, 1]")
+    cascade_launches(label, ("gram", "chol", "chol_batched", "tri_inv"), counts)
+    report["launches_by_path"][label] = counts
+    report["experiments"][label] = {k: _median(rec[k]) for k in
+                                    ("operation_time", "train_time", "acq_time")}
+    print(f"{label}: S {rec['S']}, incumbents {[round(v, 4) for v in rec['incumbents']]}, cost "
+          f"{rec['cost'][-1]:.0f}; {sec:.2f} s, median s/iteration "
+          f"{_median(rec['operation_time']):.3f} (train {_median(rec['train_time']):.3f}, "
+          f"acquisition {_median(rec['acq_time']):.3f}); launches {counts}", flush=True)
+    report["experiments"]["seconds"] = time.perf_counter() - t
+    print(f"experiments phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=200, help="Adam steps per stage")
@@ -2052,6 +2289,7 @@ def main(argv=None) -> int:
         ("joint and legacy", lambda: joint_legacy_paths(torch, device, args.iters, report)),
         ("unbatched", lambda: unbatched_paths(torch, device)),
         ("BO", lambda: bo_paths(torch, device, report)),
+        ("experiments", lambda: experiment_paths(torch, device, report)),
         ("profiler", lambda: count_device_ops(torch, device, report)))
     walls = {}
     for name, run in phases:
@@ -2073,8 +2311,8 @@ def main(argv=None) -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_by_path") + tuple(
             f for f in ("timing", "call_ms", "cross_ms", "cross_bound_ms", "cross_plain_ms",
-                        "cross_library_ms", "cross_max_abs_err", "d2", "d4", "f64", "bo", "leaf_us",
-                        "device_ops_per_call", "shapes") if f in k)})
+                        "cross_library_ms", "cross_max_abs_err", "d2", "d4", "f64", "bo", "d10",
+                        "leaf_us", "device_ops_per_call", "shapes") if f in k)})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -3,11 +3,13 @@
 The JAX package keeps parameters as pytrees of arrays; given as numpy
 arrays (e.g. ``jax.tree_util.tree_map(np.asarray, params)``) they become
 the port's float32 tensors here, so the same weights run through both
-implementations.  The Monte-Carlo draws that the JAX models keep under
-``_`` keys (`MCFidelityKernel`'s ``_z``, `ContinuousFidelityKernel`'s
-``_w`` and ``_t``, FIDES's ``_u``) come across with them: loaded from a
-JAX model's initial parameters, a port model trains from exactly the
-JAX package's init.
+implementations (a `CIGPWithMean`'s ``const_mean`` with the rest).  The
+Monte-Carlo draws that the JAX models keep under ``_`` keys
+(`MCFidelityKernel`'s ``_z``, `ContinuousFidelityKernel`'s ``_w`` and
+``_t``, FIDES's ``_u``) come across with them: loaded from a JAX model's
+initial parameters, a port model trains from exactly the JAX package's
+init.  `net_params_from_numpy` carries the real-application objectives'
+network weights across.
 """
 
 from __future__ import annotations
@@ -24,6 +26,18 @@ def params_from_numpy(tree, device="cuda"):
     as float32 tensors on ``device``."""
     return tree_map(
         lambda a: torch.tensor(np.asarray(a, np.float32), device=device), tree)
+
+
+def net_params_from_numpy(params, device="cuda"):
+    """A network's parameters from the JAX package's real-application
+    objectives (`data/real_app.py`: a dict of numpy arrays) as float32
+    tensors for the port's `nn.Module`s: 4-D conv kernels go from HWIO to
+    OIHW; dense weights keep their (in, out) layout, whose rows the port's
+    CNNs flatten in the same (h, w, c) order."""
+    def one(a):
+        t = torch.tensor(np.asarray(a, np.float32), device=device)
+        return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+    return {k: one(a) for k, a in params.items()}
 
 
 def load_state(model, params, stage_norm=None, data_manager=None, train_data=None) -> None:

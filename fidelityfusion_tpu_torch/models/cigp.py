@@ -1,11 +1,12 @@
 """CIGP and GPBasic: exact GPs over one kernel.
 
-Port of `fidelityfusion_tpu/models/cigp.py` (`CIGP` and `GPBasic`;
-`CIGPWithMean` is not ported yet).  CIGP: one shared kernel and scalar
+Port of `fidelityfusion_tpu/models/cigp.py` (`CIGP`, `GPBasic` and
+`CIGPWithMean`).  CIGP: one shared kernel and scalar
 noise across output columns, the NLML summed over columns, ``noise =
 exp(log_beta)^-1`` with a relative floor ``min_noise * mean(diag K)``.
 GPBasic: the same with ``noise = noise_variance^2`` and predictions
-without the noise.  Each model is a static spec plus a parameter dict.
+without the noise.  CIGPWithMean: a CIGP of ``y - c`` with a trainable
+constant mean ``c`` (``params["const_mean"]``).  Each model is a static spec plus a parameter dict.
 
 Parameter leaves may carry a leading restart dimension; ``y`` is then
 ``(*batch, n, d)`` or a shared ``(n, d)`` (a 1-D ``(n,)`` is one column),
@@ -271,6 +272,46 @@ class GPBasic:
         k_ss = self.kernel.diag(params["kernel"], x_test)
         return linalg.posterior_diag(Sigma, y_train, K_s, k_ss, mask=mask)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class CIGPWithMean:
+    """CIGP with a constant trainable mean (the JAX package's
+    `cigp.py:CIGPWithMean`, after `GaussianProcess/cigp_withMean.py:29-127`):
+    the GP models ``y - c`` with a trainable scalar (or per-column)
+    constant ``c``; normalization stays with the caller."""
+
+    kernel: Kernel
+    jitter: float = JITTER
+
+    def init_params(self, input_dim: int, output_dim: int = 1, log_beta: float = 1.0,
+                    y=None, device="cuda"):
+        """``y`` (optional training targets) starts the constant mean at
+        their float32 mean; starting at 0 under a large offset drives the
+        kernel variance into an ill-conditioned rank-1 regime."""
+        device = resolve_device(device)
+        c = 0.0 if y is None else float(torch.as_tensor(y, dtype=torch.float32).mean())
+        return {
+            "kernel": self.kernel.init_params(input_dim, device=device),
+            "log_beta": torch.tensor([log_beta], device=device),
+            "const_mean": torch.full((output_dim,), c, device=device),
+        }
+
+    def _gp(self) -> CIGP:
+        return CIGP(kernel=self.kernel, jitter=self.jitter)
+
+    def nll(self, params, x, y, y_var=None, mask=None) -> torch.Tensor:
+        return self._gp().nll(params, x, _targets(y) - params["const_mean"][None, :],
+                              y_var=y_var, mask=mask)
+
+    def predict(self, params, x_train, y_train, x_test, y_var=None,
+                mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Posterior mean (the constant restored) and full test covariance
+        plus the noise."""
+        c = params["const_mean"][None, :]
+        mean, cov = self._gp().predict(params, x_train, _targets(y_train) - c, x_test,
+                                       y_var=y_var, mask=mask)
+        return mean + c, cov
 
 def _chol64(Sigma):
     """Cholesky factor of the float64 island, NaN where Sigma is not

@@ -407,3 +407,41 @@ def test_ar_posterior_x_gradient_on_the_card_matches_cpu(dev):
     torch.testing.assert_close(vd, vc, rtol=0, atol=1e-4 * prior)
     torch.testing.assert_close(gd, gc, rtol=0, atol=1e-4 * gc.abs().max().item())
     assert k1 == 4 and not plain_calls, (k1, len(plain_calls))
+
+
+def test_run_single_on_the_card_matches_cpu(dev):
+    """One AR grid cell of the sweep harness (forrester12, n_high 16, the
+    harness's defaults: 100 low rows, 100 test points, 200 steps, 4
+    restarts, lr 5e-2) on the card and on the CPU: RMSE within 5%
+    relative, r2 within 1e-2; K1, K3a and K3b launched on the card."""
+    from fidelityfusion_tpu_torch.experiments.sweep import run_single
+    from fidelityfusion_tpu_torch.ops import cuda
+
+    cpu = run_single("AR", "forrester12", 0, 16, device="cpu")
+    cuda.reset_launch_counts()
+    card = run_single("AR", "forrester12", 0, 16, device=dev)
+    counts = cuda.launch_counts()
+    assert abs(card["rmse"] - cpu["rmse"]) <= 0.05 * cpu["rmse"], (card, cpu)
+    assert abs(card["r2"] - cpu["r2"]) <= 1e-2, (card, cpu)
+    assert all(counts.get(k, 0) > 0 for k in ("gram", "chol_batched", "tri_inv")), counts
+
+
+def test_mlp_objective_on_the_card_matches_cpu(dev):
+    """`MLPTrainingObjective.get_data` at two hyperparameter rows and s = 1,
+    2 on the card and on the CPU (the same seeded data and weights): the
+    validation accuracies within 1/n_val, the final validation logits
+    within 1e-3 of their max |.|."""
+    import numpy as np
+
+    from fidelityfusion_tpu_torch.data.real_app import MLPTrainingObjective
+
+    cpu, card = MLPTrainingObjective(2, device="cpu"), MLPTrainingObjective(2, device=dev)
+    x = np.array([[-2.0, 0.5], [-1.3, 0.9]])
+    n_val = len(cpu.y_val)
+    for s in (1, 2):
+        np.testing.assert_allclose(card.get_data(x, s), cpu.get_data(x, s), rtol=0,
+                                   atol=1.0 / n_val)
+        for row in x:
+            lc = cpu._val_logits(row[0], row[1], 10 * s)
+            lg = card._val_logits(row[0], row[1], 10 * s).cpu()
+            torch.testing.assert_close(lg, lc, rtol=0, atol=1e-3 * lc.abs().max().item())

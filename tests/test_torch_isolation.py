@@ -3,6 +3,7 @@ the JAX package, and the port's entry points never move a run to the CPU
 on their own."""
 
 import ast
+import importlib.util
 import json
 import subprocess
 import sys
@@ -41,11 +42,15 @@ NEW_MODULES = ("models.joint", "models.legacy", "utils.config", "utils.logging",
                "utils.profiling", "utils.checkpoint", "ops.kernels", "models.cigp", "convert",
                "data.cost", "data.objectives", "bo", "bo.acq", "bo.optimize", "bo.mf_acq",
                "bo.cfkg", "bo.strategies", "bo.mace", "bo.continuous", "bo.loop",
-               "bo.continuous_loop")
+               "bo.continuous_loop", "data", "data.zoo", "data.real_app", "experiments",
+               "experiments.load_mfdata", "experiments.sweep", "experiments.plots",
+               "utils.plotting", "examples.ex01_multifidelity_regression",
+               "examples.ex02_mfbo_discrete", "examples.ex03_gar_fields",
+               "examples.ex04_mfbo_continuous")
 
 
 def test_port_module_imports_pull_in_no_jax():
-    """Each module of the joint/legacy and BO slices, imported one after the other
+    """Each module of the joint/legacy, BO and experiments slices, imported one after the other
     in a fresh interpreter, loads neither JAX nor anything of the JAX
     package (checked after every import, so a failure names its module)."""
     code = ("import importlib, json, sys\n"
@@ -110,6 +115,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                   "CIGAR"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             demo.main([model, "--iters", "1"])
+
+
+def test_experiment_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    """The harness, the objectives, `CIGPWithMean` and the examples: each
+    raises before any work when no device is named."""
+    from fidelityfusion_tpu_torch.data import real_app
+    from fidelityfusion_tpu_torch.examples import (
+        ex01_multifidelity_regression, ex02_mfbo_discrete, ex03_gar_fields,
+        ex04_mfbo_continuous)
+    from fidelityfusion_tpu_torch.experiments import sweep
+    from fidelityfusion_tpu_torch.models.cigp import CIGPWithMean
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
+
+    out = str(tmp_path)
+    makes = [lambda: sweep.run_single("AR", "forrester12", 0, 8),
+             lambda: sweep.run_sweep(["AR"], ["forrester12"], seeds=[0], outdir=out),
+             lambda: sweep.run_car_sweep(outdir=out),
+             lambda: sweep.run_car_cost_sweep(outdir=out),
+             lambda: sweep.run_gar_field_sweep(outdir=out),
+             lambda: sweep.main(["--methods", "AR", "--outdir", out]),
+             lambda: sweep.main(["--protocol", "gar-field", "--outdir", out]),
+             lambda: real_app.MLPTrainingObjective(2), lambda: real_app.CNNTrainingObjective(2),
+             lambda: CIGPWithMean(ARDKernel()).init_params(1)]
+    makes += [lambda m=m: m.main([]) for m in (
+        ex01_multifidelity_regression, ex02_mfbo_discrete, ex03_gar_fields,
+        ex04_mfbo_continuous)]
+    if importlib.util.find_spec("sklearn") is not None:
+        makes += [real_app.DigitsMLPObjective, real_app.DigitsCNNObjective]
+    for make in makes:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_without_a_card(no_cuda, capsys):
