@@ -1,7 +1,6 @@
 """AR (Kennedy-O'Hagan autoregressive) multi-fidelity fusion.
 
-Port of `fidelityfusion_tpu/models/ar.py` (without the ``n_mesh`` sharded
-stages, which are not ported yet):
+Port of `fidelityfusion_tpu/models/ar.py`:
 
     y_hi(x) = rho_i * y_lo(x) + res_i(x)
 
@@ -10,7 +9,9 @@ Training is staged: each fidelity's (GP hyperparameters, rho) is fitted by
 Adam over a batch of restarts (the deterministic length-scale ladder),
 with residual targets recomputed inside the loss so rho gets gradients
 through them.  Non-subset data impute missing low-fidelity observations
-with the model's own cascade between stages.
+with the model's own cascade between stages.  With ``n_mesh``, stages of
+at least ``nshard_min_rows`` rows train through the n-axis sharded
+factorization (`parallel/nsharded.py`, `_run_stage_nsharded`).
 
 The model holds static specs, a parameter dict of tensors on
 ``model.device`` and the per-stage residual standardization.
@@ -125,13 +126,22 @@ class AR:
 def train_AR(model: AR, data_manager: MultiFidelityDataManager,
              max_iter: int = 100, lr_init: float = 1e-2, n_restarts: int = 4,
              seed: int = 0, debugger=None,
-             pad_multiple: Optional[int] = None) -> List[torch.Tensor]:
+             pad_multiple: Optional[int] = None, n_mesh=None,
+             nshard_min_rows: int = 2048) -> List[torch.Tensor]:
     """Sequential per-fidelity training.  Stage 0 fits the base GP on
     fidelity-0 data; stage i >= 1 fits the residual GP on
     ``y_hi - rho_i * y_lo`` over the subset (or the imputed non-subset fill
     data with variance targets).  Returns the per-stage loss histories,
     ``(n_restarts, max_iter)`` each (``(max_iter,)`` without restarts).
-    No ``n_mesh`` argument: the n-axis-sharded stages are not ported yet."""
+
+    ``n_mesh``: a `DeviceMesh` with an ``"n"`` dim (and optionally ``"r"``,
+    `parallel/nsharded.py:make_rn_mesh`), every rank calling this with the
+    same model and data.  Stages of at least ``nshard_min_rows`` rows then
+    train through `fit_restarts_nsharded` (the restart ladder on "r", the
+    Gram and factor rows on "n"), and return their per-restart final NLMLs
+    for a history.  Masked or padded stages and imputed-variance
+    non-subset stages (whose variance target depends on rho) stay
+    unsharded, as in the JAX package."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []
@@ -143,10 +153,15 @@ def train_AR(model: AR, data_manager: MultiFidelityDataManager,
                 x_low, y_low, mask0 = pad_with_mask(x_low, y_low, pad_multiple, dev)
             else:
                 x_low, y_low, mask0 = _f32(x_low, dev), _f32(y_low, dev), None
-            stage_params, hist = _run_stage(
-                _CigpNLL(gp), model.params["gp"][0], max_iter, lr_init,
-                n_restarts, generator, kernel_spec=gp.kernel, x=x_low,
-                loss_args=(x_low, y_low, None, mask0))
+            if n_mesh is not None and mask0 is None and x_low.shape[0] >= nshard_min_rows:
+                stage_params, hist = _run_stage_nsharded(
+                    gp, model.params["gp"][0], x_low, y_low, None, n_mesh, max_iter, lr_init,
+                    n_restarts, generator)
+            else:
+                stage_params, hist = _run_stage(
+                    _CigpNLL(gp), model.params["gp"][0], max_iter, lr_init,
+                    n_restarts, generator, kernel_spec=gp.kernel, x=x_low,
+                    loss_args=(x_low, y_low, None, mask0))
             model.params["gp"][0] = stage_params
         else:
             rho0 = model.params["rho"][i_fid - 1]
@@ -182,11 +197,16 @@ def train_AR(model: AR, data_manager: MultiFidelityDataManager,
                 loss_i = _ResidualLoss(gp)
                 loss_args_i = (sx, yl, yh, shift, scale, mask_i)
 
-            stage_params, hist = _run_stage(
-                loss_i, {"gp": model.params["gp"][i_fid], "rho": rho0},
-                max_iter, lr_init, n_restarts, generator, kernel_spec=gp.kernel,
-                x=sx, gp_field="gp",
-                loss_args=loss_args_i)
+            stage_p = {"gp": model.params["gp"][i_fid], "rho": rho0}
+            if (n_mesh is not None and not model.if_nonsubset and not pad_multiple
+                    and sx.shape[0] >= nshard_min_rows):
+                stage_params, hist = _run_stage_nsharded(
+                    gp, stage_p, sx, None, (yl, yh, shift, scale), n_mesh, max_iter,
+                    lr_init, n_restarts, generator, gp_field="gp")
+            else:
+                stage_params, hist = _run_stage(
+                    loss_i, stage_p, max_iter, lr_init, n_restarts, generator,
+                    kernel_spec=gp.kernel, x=sx, gp_field="gp", loss_args=loss_args_i)
             model.params["gp"][i_fid] = stage_params["gp"]
             model.params["rho"][i_fid - 1] = stage_params["rho"]
 
@@ -360,6 +380,39 @@ def _run_stage(loss_fn, params, steps, lr, n_restarts, generator,
     best, result = fit_restarts(loss_fn, batch, steps=steps, lr=lr, loss_args=loss_args,
                                 aux0=aux_batch)
     return best, result.losses
+
+
+def _run_stage_nsharded(gp, params, x, y, residual, mesh, steps, lr, n_restarts, generator,
+                        gp_field=None, y_var=None, lift=None):
+    """One stage through `parallel/nsharded.py:fit_restarts_nsharded`:
+    the same deterministic length-scale ladder as `_run_stage`, the
+    restarts on the mesh's ``"r"`` dim when it has one that divides R, the
+    Gram and factor rows on ``"n"``.  Returns ``(best_params,
+    per_restart_final_losses)``."""
+    from fidelityfusion_tpu_torch.parallel.mesh import axis_size
+    from fidelityfusion_tpu_torch.parallel.nsharded import fit_restarts_nsharded
+
+    n_restarts = max(1, n_restarts)
+    gp_params = params[gp_field] if gp_field else params
+    gp_inits = gp_restart_batch(gp.kernel, gp_params, x, n_restarts, generator)
+    batch = stack_params([{**params, gp_field: g} for g in gp_inits] if gp_field else gp_inits)
+    r_axis = None
+    if "r" in mesh.mesh_dim_names and n_restarts % axis_size(mesh, "r") == 0:
+        r_axis = "r"
+    return fit_restarts_nsharded(gp, batch, x, y, mesh, steps=steps, lr=lr, r_axis=r_axis,
+                                 residual=residual, y_var=y_var, lift=lift)
+
+
+def _run_cigp_stage(gp, params, x, y, y_var, steps, lr, n_restarts, generator, n_mesh,
+                    nshard_min_rows):
+    """A stage whose targets are known before it trains (ResGP, NAR): the
+    CIGP NLML of ``(x, y, y_var)``, n-sharded from ``nshard_min_rows`` rows
+    when ``n_mesh`` is given, else `_run_stage`."""
+    if n_mesh is not None and x.shape[0] >= nshard_min_rows:
+        return _run_stage_nsharded(gp, params, x, y, None, n_mesh, steps, lr, n_restarts,
+                                   generator, y_var=y_var)
+    return _run_stage(_CigpNLL(gp), params, steps, lr, n_restarts, generator,
+                      kernel_spec=gp.kernel, x=x, loss_args=(x, y, y_var))
 
 
 def pad_with_mask(x, y, pad_multiple: int, device):

@@ -1,7 +1,6 @@
 """CIGAR: conditionally-independent GAR.
 
-Port of `fidelityfusion_tpu/models/cigar.py` (without the ``n_mesh``
-sharded stages, which are not ported yet): GAR's cascade with each
+Port of `fidelityfusion_tpu/models/cigar.py`: GAR's cascade with each
 fidelity's tensor output flattened to ``(n, D)`` and one shared-kernel
 CIGP per fidelity in place of a HOGP; the variance is the per-row
 diagonal broadcast over the output columns.
@@ -20,7 +19,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from fidelityfusion_tpu_torch.models.ar import _f32, _residual_norm, _run_stage, stage_x
+from fidelityfusion_tpu_torch.models.ar import (
+    _f32, _residual_norm, _run_stage, _run_stage_nsharded, stage_x)
 from fidelityfusion_tpu_torch.models.cigp import CIGP
 from fidelityfusion_tpu_torch.models.coupling import TensorLinear
 from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager
@@ -119,12 +119,17 @@ class CIGAR:
 
 def train_CIGAR(model: CIGAR, data_manager: MultiFidelityDataManager, max_iter: int = 100,
                 lr_init: float = 1e-2, n_restarts: int = 4, seed: int = 0,
-                debugger=None) -> List[torch.Tensor]:
+                debugger=None, n_mesh=None, nshard_min_rows: int = 2048) -> List[torch.Tensor]:
     """Staged training: stage i >= 1 fits the CIGP on the flattened
     standardized residual ``Y_hi - TL_i(Y_lo)`` with the lift trained
     through the NLML; non-subset data add ``|var_hi - var_lo|``.  Returns
-    the per-stage loss histories.  No ``n_mesh`` argument: the
-    n-axis-sharded stages are not ported yet."""
+    the per-stage loss histories.
+
+    ``n_mesh``: stages of at least ``nshard_min_rows`` rows train through
+    the n-axis sharded factorization (`models/ar.py:train_AR`); a residual
+    stage rebuilds its lifted target from row slabs inside the sharded
+    NLML (`restarts_nll_nsharded(lift=...)`: the lift acts on output
+    columns, so it is row-local) and trains the lift through it."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []
@@ -134,10 +139,15 @@ def train_CIGAR(model: CIGAR, data_manager: MultiFidelityDataManager, max_iter: 
             x_low, y_low = data_manager.get_data(0, normal=True)
             x_low, y_low = _f32(x_low, dev), _f32(y_low, dev)
             y_low = y_low.reshape(len(y_low), -1)
-            stage_p, hist = _run_stage(
-                _Cigar0Loss(gp), {"gp": model.params["gp"][0]}, max_iter, lr_init,
-                n_restarts, generator, kernel_spec=gp.kernel, x=x_low, gp_field="gp",
-                loss_args=(x_low, y_low))
+            if n_mesh is not None and x_low.shape[0] >= nshard_min_rows:
+                good, hist = _run_stage_nsharded(gp, model.params["gp"][0], x_low, y_low, None,
+                                                 n_mesh, max_iter, lr_init, n_restarts, generator)
+                stage_p = {"gp": good}
+            else:
+                stage_p, hist = _run_stage(
+                    _Cigar0Loss(gp), {"gp": model.params["gp"][0]}, max_iter, lr_init,
+                    n_restarts, generator, kernel_spec=gp.kernel, x=x_low, gp_field="gp",
+                    loss_args=(x_low, y_low))
             model.params["gp"][0] = stage_p["gp"]
         else:
             tl0 = model.params["tl"][i_fid - 1]
@@ -161,11 +171,17 @@ def train_CIGAR(model: CIGAR, data_manager: MultiFidelityDataManager, max_iter: 
             model.stage_norm[i_fid] = (shift, scale)
             if rv is not None:
                 rv = rv / scale ** 2
-            stage_p, hist = _run_stage(
-                _CigarResLoss(gp, model.tl_list[i_fid - 1]),
-                {"gp": model.params["gp"][i_fid], "tl": tl0}, max_iter, lr_init, n_restarts,
-                generator, kernel_spec=gp.kernel, x=sx, gp_field="gp",
-                loss_args=(sx, yl, yh, rv, shift, scale))
+            stage_p = {"gp": model.params["gp"][i_fid], "tl": tl0}
+            if n_mesh is not None and sx.shape[0] >= nshard_min_rows:
+                stage_p, hist = _run_stage_nsharded(
+                    gp, stage_p, sx, None, (yl, yh, shift, scale), n_mesh, max_iter, lr_init,
+                    n_restarts, generator, gp_field="gp",
+                    y_var=None if rv is None else rv.reshape(-1), lift=model.tl_list[i_fid - 1])
+            else:
+                stage_p, hist = _run_stage(
+                    _CigarResLoss(gp, model.tl_list[i_fid - 1]), stage_p, max_iter, lr_init,
+                    n_restarts, generator, kernel_spec=gp.kernel, x=sx, gp_field="gp",
+                    loss_args=(sx, yl, yh, rv, shift, scale))
             model.params["gp"][i_fid] = stage_p["gp"]
             model.params["tl"][i_fid - 1] = stage_p["tl"]
             with torch.no_grad():

@@ -1,7 +1,6 @@
 """GAR: generalized autoregression for tensor-valued (field) outputs.
 
-Port of `fidelityfusion_tpu/models/gar.py` (without the ``n_mesh`` sharded
-stages, which are not ported yet): per-fidelity HOGP surrogates over
+Port of `fidelityfusion_tpu/models/gar.py`: per-fidelity HOGP surrogates over
 tensor outputs, coupled by trainable `TensorLinear` per-mode lifts where
 the fidelities' output grids differ:
 
@@ -87,6 +86,16 @@ class _GarResLossTracked:
                                      refresh_every=self.refresh_every)
 
 
+def _nshard(mesh, rows: int, min_rows: int) -> bool:
+    """Whether a stage of ``rows`` rows trains n-sharded on ``mesh``: at
+    least ``min_rows`` rows, divisible by the "n" size."""
+    if mesh is None or rows < min_rows:
+        return False
+    from fidelityfusion_tpu_torch.parallel.mesh import axis_size
+
+    return rows % axis_size(mesh, "n") == 0
+
+
 class GAR:
     """Staged HOGP cascade over tensor fields; ``data_shape_list`` gives
     each fidelity's per-sample output shape."""
@@ -170,12 +179,17 @@ class GAR:
 
 def train_GAR(model: GAR, data_manager: MultiFidelityDataManager, max_iter: int = 100,
               lr_init: float = 1e-2, n_restarts: int = 4, seed: int = 0,
-              debugger=None) -> List[torch.Tensor]:
+              debugger=None, n_mesh=None, nshard_min_rows: int = 2048) -> List[torch.Tensor]:
     """Staged training: stage i >= 1 fits the HOGP on the standardized
     residual ``Y_hi - TL_i(Y_lo)`` with the lift trained through the NLML;
     non-subset data add the imputed variance ``|var_hi - var_lo|`` to K_0's
-    diagonal.  Returns the per-stage loss histories.  No ``n_mesh``
-    argument: the n-axis-sharded stages are not ported yet."""
+    diagonal.  Returns the per-stage loss histories.
+
+    ``n_mesh``: a mesh with an ``"n"`` dim; stages of at least
+    ``nshard_min_rows`` rows that divide by its size train through the
+    n-axis sharded tracked Kronecker NLML (`parallel/kron_nsharded.py:
+    fit_hogp_nsharded`: one initialization, refreshes every 64 steps);
+    smaller stages keep the restart path."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []
@@ -184,12 +198,21 @@ def train_GAR(model: GAR, data_manager: MultiFidelityDataManager, max_iter: int 
         if i_fid == 0:
             x_low, y_low = data_manager.get_data(0, normal=True)
             x_low, y_low = _f32(x_low, dev), _f32(y_low, dev)
-            tracked = x_low.shape[0] >= _TRACK_N_THRESHOLD
-            stage_p, hist = _run_stage(
-                _Gar0LossTracked(hogp) if tracked else _Gar0Loss(hogp),
-                {"hogp": model.params["hogp"][0]}, max_iter, lr_init, n_restarts, generator,
-                kernel_spec=hogp.kernel, x=x_low, gp_field="hogp", loss_args=(x_low, y_low),
-                aux0=hogp.tracking_aux0(x_low.shape[0], dev) if tracked else None)
+            if _nshard(n_mesh, x_low.shape[0], nshard_min_rows):
+                from fidelityfusion_tpu_torch.parallel.kron_nsharded import fit_hogp_nsharded
+
+                good, hist, _ = fit_hogp_nsharded(hogp, model.params["hogp"][0], x_low, y_low,
+                                                  n_mesh, steps=max_iter, lr=lr_init,
+                                                  refresh_every=64)
+                stage_p = {"hogp": good}
+            else:
+                tracked = x_low.shape[0] >= _TRACK_N_THRESHOLD
+                stage_p, hist = _run_stage(
+                    _Gar0LossTracked(hogp) if tracked else _Gar0Loss(hogp),
+                    {"hogp": model.params["hogp"][0]}, max_iter, lr_init, n_restarts,
+                    generator, kernel_spec=hogp.kernel, x=x_low, gp_field="hogp",
+                    loss_args=(x_low, y_low),
+                    aux0=hogp.tracking_aux0(x_low.shape[0], dev) if tracked else None)
             model.params["hogp"][0] = stage_p["hogp"]
             with torch.no_grad():
                 _, model.states[0] = hogp.nll_with_state(stage_p["hogp"], x_low, y_low)
@@ -213,13 +236,21 @@ def train_GAR(model: GAR, data_manager: MultiFidelityDataManager, max_iter: int 
             model.stage_norm[i_fid] = (shift, scale)
             if rv is not None:
                 rv = rv / scale ** 2
-            tracked = sx.shape[0] >= _TRACK_N_THRESHOLD
-            stage_p, hist = _run_stage(
-                _GarResLossTracked(hogp, tl) if tracked else _GarResLoss(hogp, tl),
-                {"hogp": model.params["hogp"][i_fid], "tl": tl0}, max_iter, lr_init,
-                n_restarts, generator, kernel_spec=hogp.kernel, x=sx, gp_field="hogp",
-                loss_args=(sx, yl, yh, rv, shift, scale),
-                aux0=hogp.tracking_aux0(sx.shape[0], dev) if tracked else None)
+            stage_p = {"hogp": model.params["hogp"][i_fid], "tl": tl0}
+            if _nshard(n_mesh, sx.shape[0], nshard_min_rows):
+                from fidelityfusion_tpu_torch.parallel.kron_nsharded import fit_hogp_nsharded
+
+                stage_p, hist, _ = fit_hogp_nsharded(
+                    hogp, stage_p, sx, None, n_mesh, steps=max_iter, lr=lr_init,
+                    refresh_every=64, y_var=rv, residual=(tl, yl, yh, shift, scale))
+            else:
+                tracked = sx.shape[0] >= _TRACK_N_THRESHOLD
+                stage_p, hist = _run_stage(
+                    _GarResLossTracked(hogp, tl) if tracked else _GarResLoss(hogp, tl),
+                    stage_p, max_iter, lr_init, n_restarts, generator,
+                    kernel_spec=hogp.kernel, x=sx, gp_field="hogp",
+                    loss_args=(sx, yl, yh, rv, shift, scale),
+                    aux0=hogp.tracking_aux0(sx.shape[0], dev) if tracked else None)
             model.params["hogp"][i_fid] = stage_p["hogp"]
             model.params["tl"][i_fid - 1] = stage_p["tl"]
             # the final residual dataset and posterior state for the cascade

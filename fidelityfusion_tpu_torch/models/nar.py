@@ -1,8 +1,8 @@
 """NAR: nonlinear autoregressive multi-fidelity GP.
 
-Port of `fidelityfusion_tpu/models/nar.py` (without the ``n_mesh``
-sharded stages): fidelity i's GP takes the input ``[x, y_{i-1}(x)]``, a
-nonlinear coupling learned by the kernel, with no rho.  Prediction feeds
+Port of `fidelityfusion_tpu/models/nar.py`: fidelity i's GP takes the
+input ``[x, y_{i-1}(x)]``, a nonlinear coupling learned by the kernel,
+with no rho.  Prediction feeds
 the predicted lower-fidelity mean in as the next stage's last input
 column, so stages i >= 1 run K1 at d = input_dim + 1.
 """
@@ -15,9 +15,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from fidelityfusion_tpu_torch.models.ar import (
-    _CigpNLL,
+    _run_cigp_stage,
     _f32,
-    _run_stage,
     pad_with_mask,
     stage_x,
 )
@@ -135,13 +134,18 @@ class NARPosterior:
 
 def train_NAR(model: NAR, data_manager: MultiFidelityDataManager,
               max_iter: int = 100, lr_init: float = 1e-2, n_restarts: int = 4,
-              seed: int = 0, debugger=None) -> List[torch.Tensor]:
+              seed: int = 0, debugger=None, n_mesh=None,
+              nshard_min_rows: int = 2048) -> List[torch.Tensor]:
     """Sequential training: stage i >= 1 fits a GP from ``[subset_x,
     y_low]`` to ``y_high`` (non-subset: the imputed ``y_low`` and
     ``y_high``'s variance as ``y_var``) and registers that training set as
     ``concat-i`` for the cascade.  Returns the per-stage loss histories,
     as `train_AR`.
-    No ``n_mesh`` argument: the n-axis-sharded stages are not ported yet."""
+
+    ``n_mesh``: stages of at least ``nshard_min_rows`` rows train through
+    the n-axis sharded factorization (`models/ar.py:train_AR`); NAR's
+    stage inputs and targets are built before a stage trains, so every
+    stage can go."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []
@@ -165,9 +169,9 @@ def train_NAR(model: NAR, data_manager: MultiFidelityDataManager,
                 raw_fidelity_name=f"concat-{i_fid}", fidelity_index=None,
                 x=x.cpu().numpy(),
                 y=[y.cpu().numpy(), None if y_var is None else y_var.cpu().numpy()])
-        model.params["gp"][i_fid], hist = _run_stage(
-            _CigpNLL(gp), model.params["gp"][i_fid], max_iter, lr_init, n_restarts,
-            generator, kernel_spec=gp.kernel, x=x, loss_args=(x, y, y_var))
+        model.params["gp"][i_fid], hist = _run_cigp_stage(
+            gp, model.params["gp"][i_fid], x, y, y_var, max_iter, lr_init, n_restarts,
+            generator, n_mesh, nshard_min_rows)
         histories.append(hist)
         if debugger is not None:
             debugger.record_stage(i_fid, hist)

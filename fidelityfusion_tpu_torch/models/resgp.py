@@ -1,7 +1,6 @@
 """ResGP: residual multi-fidelity GP (rho fixed at 1).
 
-Port of `fidelityfusion_tpu/models/resgp.py` (without the ``n_mesh``
-sharded stages):
+Port of `fidelityfusion_tpu/models/resgp.py`:
 
     y_hi(x) = y_lo(x) + res_i(x)
 
@@ -16,11 +15,10 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from fidelityfusion_tpu_torch.models.ar import (
-    _CigpNLL,
+    _run_cigp_stage,
     _export_cascade,
     _f32,
     _residual_norm,
-    _run_stage,
     stage_x,
 )
 from fidelityfusion_tpu_torch.models.cigp import CIGP
@@ -84,12 +82,18 @@ class ResGP:
 
 def train_ResGP(model: ResGP, data_manager: MultiFidelityDataManager,
                 max_iter: int = 100, lr_init: float = 1e-2, n_restarts: int = 4,
-                seed: int = 0, debugger=None) -> List[torch.Tensor]:
+                seed: int = 0, debugger=None, n_mesh=None,
+                nshard_min_rows: int = 2048) -> List[torch.Tensor]:
     """Sequential per-fidelity training: stage i >= 1 fits the standardized
     residual ``y_hi - y_lo`` on the overlap (subset) or on the imputed
     mean, with variance ``|var_hi - var_lo|`` (non-subset).  Returns the
     per-stage loss histories, as `train_AR`.
-    No ``n_mesh`` argument: the n-axis-sharded stages are not ported yet."""
+
+    ``n_mesh``: stages of at least ``nshard_min_rows`` rows train through
+    the n-axis sharded factorization (`models/ar.py:train_AR`); ResGP's
+    targets are known before a stage trains (rho is 1), so every stage,
+    the imputed-variance non-subset ones included (``y_var`` on the
+    sharded diagonal), can go."""
     dev = model.device
     generator = torch.Generator().manual_seed(seed)
     histories = []
@@ -117,9 +121,9 @@ def train_ResGP(model: ResGP, data_manager: MultiFidelityDataManager,
                 raw_fidelity_name=f"res-{i_fid}", fidelity_index=None,
                 x=x.cpu().numpy(),
                 y=[y.cpu().numpy(), None if y_var is None else y_var.cpu().numpy()])
-        model.params["gp"][i_fid], hist = _run_stage(
-            _CigpNLL(gp), model.params["gp"][i_fid], max_iter, lr_init, n_restarts,
-            generator, kernel_spec=gp.kernel, x=x, loss_args=(x, y, y_var))
+        model.params["gp"][i_fid], hist = _run_cigp_stage(
+            gp, model.params["gp"][i_fid], x, y, y_var, max_iter, lr_init, n_restarts,
+            generator, n_mesh, nshard_min_rows)
         histories.append(hist)
         if debugger is not None:
             debugger.record_stage(i_fid, hist)

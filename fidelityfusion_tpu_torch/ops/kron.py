@@ -25,7 +25,9 @@ eigendecomposition costs 1e-7).  So `models/hogp.py` builds its Grams in
 float64 (K1's float64 instance on the card), `eigh_pairs` decomposes in
 float64, and `to_targets` brings the eigenpairs (and `predict`'s mode
 Grams) back to the targets' float32 for the rest of the NLML, its
-backward and the posterior.  And
+backward and the posterior; the backward's last step, each mode Gram's
+cotangent rotated back from its eigenbasis, runs in the Gram's float64
+(`_kron_nlml_bwd`).  And
 ``torch.linalg.eigh`` raises where the JAX package's returns NaN (it
 checks the solver's status, on the CPU and on the card), so a matrix with
 a non-finite entry is swapped for the identity before ``eigh`` and its
@@ -142,11 +144,16 @@ def _loss_and_saved(eigvals, eigvecs, y, noise):
     return loss, eigvals, A, T1
 
 
-def _kron_nlml_bwd(eigvals, eigvecs, A, T1, t, need_K, need_y, need_noise):
+def _kron_nlml_bwd(eigvals, eigvecs, A, T1, t, need_K, need_y, need_noise, k_dtypes):
     """Closed-form VJP (`fidelityfusion_tpu/ops/kron.py:_kron_nlml_bwd`):
     ``dK_m = s V_m (diag(w_m) - G_m G_m^T) V_m^T`` with ``s = t / (2 nd)``,
     ``dy = (t / nd) multi_mode_dot(beta, V)``, ``dnoise = s (sum U - sum
-    beta^2)``; batched, ``t`` of shape ``(b,)``."""
+    beta^2)``; batched, ``t`` of shape ``(b,)``.  The eigen-space cotangent
+    ``diag(w_m) - G_m G_m^T`` is rotated back to the Gram's basis in the
+    Gram's dtype ``k_dtypes[m]`` (float64): its two terms nearly cancel in
+    the gradient of a length scale or signal variance, and a float32
+    rotation loses that difference (hogp1024's signal-variance gradient
+    came out with the wrong sign; `scripts/hogp_grad_precision.py`)."""
     M1 = len(eigvals)
     nd = float(math.prod(T1.shape[1:]))
     dims = tuple(range(1, M1 + 1))
@@ -169,9 +176,9 @@ def _kron_nlml_bwd(eigvals, eigvecs, A, T1, t, need_K, need_y, need_noise):
         del gamma
         B = G @ G.transpose(-1, -2)
         del G
-        V = eigvecs[m]
-        Vt = V.transpose(-1, -2)
-        dKs.append(scale[:, None, None] * (V @ (w[:, :, None] * Vt - B @ Vt)))
+        D = (torch.diag_embed(w) - B).to(k_dtypes[m])
+        V = eigvecs[m].to(k_dtypes[m])
+        dKs.append(scale.to(V.dtype)[:, None, None] * (V @ D @ V.transpose(-1, -2)))
     dy = None
     if need_y:
         dy = (t / nd).reshape((-1,) + (1,) * M1) * multi_mode_dot(beta, list(eigvecs),
@@ -211,6 +218,7 @@ class _KronNLML(torch.autograd.Function):
         ctx.save_for_backward(A, T1, *eigvals, *eigvecs)
         ctx.M1 = len(Ks)
         ctx.shapes = (y.ndim, noise.shape, [K.ndim for K in Ks])
+        ctx.k_dtypes = [K.dtype for K in Ks]
         batched = any(K.ndim == 3 for K in Ks) or y.ndim == len(Ks) + 1
         loss = loss if batched else loss[0]
         if spec is None:
@@ -229,7 +237,7 @@ class _KronNLML(torch.autograd.Function):
         need = ctx.needs_input_grad
         tb = t.reshape(-1).expand(A.shape[0])
         dKs, dy, dnoise = _kron_nlml_bwd(eigvals, eigvecs, A, T1, tb, need[5:], need[1],
-                                         need[2])
+                                         need[2], ctx.k_dtypes)
         dKs = [None if g is None else _unbatch(g, nd) for g, nd in zip(dKs, K_ndims)]
         if dy is not None:
             dy = _unbatch(dy, y_ndim)

@@ -50,6 +50,33 @@ def _ns_orthonormalize(Q: torch.Tensor, steps: int = 3) -> torch.Tensor:
     return Q
 
 
+def jacobi_generator(B: torch.Tensor) -> torch.Tensor:
+    """The skew rotation generator S of one sweep over the Rayleigh-Ritz
+    matrix ``B``: the exact 2x2 Jacobi tangents, Frobenius-capped at
+    `_MAX_S_NORM`."""
+    d = B.diagonal(dim1=-2, dim2=-1)
+    E = B - torch.diag_embed(d)
+    diff = d[..., None, :] - d[..., :, None]  # d_j - d_i at (i, j)
+    sgn = torch.where(diff >= 0, 1.0, -1.0).to(B.dtype)
+    denom = diff.abs() + torch.sqrt(diff * diff + 4.0 * E * E)
+    t = torch.where(denom > 0, 2.0 * E * sgn / torch.clamp(denom, min=1e-30),
+                    torch.zeros_like(E))
+    # S must be exactly skew: at ties diff == 0 gives sgn = +1 at both
+    # (i, j) and (j, i); take the upper triangle and antisymmetrize
+    t = torch.triu(t, 1)
+    t = t - t.transpose(-1, -2)
+    s_norm = torch.sqrt((t * t).sum((-2, -1)))
+    return t * torch.clamp(_MAX_S_NORM / torch.clamp(s_norm, min=1e-30), max=1.0)[..., None, None]
+
+
+def off_diagonal_residual(B: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(diag(B), ||B - diag(B)||_F / ||B||_F)``."""
+    w = B.diagonal(dim1=-2, dim2=-1)
+    off = B - torch.diag_embed(w)
+    return w, torch.sqrt((off * off).sum((-2, -1))) / torch.clamp(
+        torch.sqrt((B * B).sum((-2, -1))), min=1e-30)
+
+
 def jacobi_refine(K: torch.Tensor, V: torch.Tensor,
                   sweeps: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Refine an approximate eigenbasis ``V`` of symmetric ``K``; returns
@@ -58,26 +85,10 @@ def jacobi_refine(K: torch.Tensor, V: torch.Tensor,
     B = (V.transpose(-1, -2) @ K) @ V
     eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
     for _ in range(sweeps):
-        d = B.diagonal(dim1=-2, dim2=-1)
-        E = B - torch.diag_embed(d)
-        diff = d[..., None, :] - d[..., :, None]  # d_j - d_i at (i, j)
-        sgn = torch.where(diff >= 0, 1.0, -1.0).to(B.dtype)
-        denom = diff.abs() + torch.sqrt(diff * diff + 4.0 * E * E)
-        t = torch.where(denom > 0, 2.0 * E * sgn / torch.clamp(denom, min=1e-30),
-                        torch.zeros_like(E))
-        # S must be exactly skew: at ties diff == 0 gives sgn = +1 at both
-        # (i, j) and (j, i); take the upper triangle and antisymmetrize
-        t = torch.triu(t, 1)
-        t = t - t.transpose(-1, -2)
-        s_norm = torch.sqrt((t * t).sum((-2, -1)))
-        t = t * torch.clamp(_MAX_S_NORM / torch.clamp(s_norm, min=1e-30), max=1.0)[..., None, None]
-        Q = _ns_orthonormalize(eye + t)
+        Q = _ns_orthonormalize(eye + jacobi_generator(B))
         B = (Q.transpose(-1, -2) @ B) @ Q
         V = V @ Q
-    w = B.diagonal(dim1=-2, dim2=-1)
-    off = B - torch.diag_embed(w)
-    res = torch.sqrt((off * off).sum((-2, -1))) / torch.clamp(
-        torch.sqrt((B * B).sum((-2, -1))), min=1e-30)
+    w, res = off_diagonal_residual(B)
     return w, V, res
 
 

@@ -445,3 +445,42 @@ def test_mlp_objective_on_the_card_matches_cpu(dev):
             lc = cpu._val_logits(row[0], row[1], 10 * s)
             lg = card._val_logits(row[0], row[1], 10 * s).cpu()
             torch.testing.assert_close(lg, lc, rtol=0, atol=1e-3 * lc.abs().max().item())
+
+
+def test_cigp_nll_nsharded_world_of_one_on_the_card_matches_cpu(dev):
+    """`cigp_nll_nsharded` over a world of one rank on the card (NCCL,
+    started by `make_n_mesh`) against the unsharded NLML of the same data on
+    the CPU: value within 1e-4 of max(1, |v|), every gradient leaf within
+    1e-3 of its max; K1, K2 and K3b launched, the plain versions not."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from fidelityfusion_tpu_torch.models.cigp import CIGP
+    from fidelityfusion_tpu_torch.ops import cuda
+    from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
+    from fidelityfusion_tpu_torch.parallel import cigp_nll_nsharded, make_n_mesh
+    from fidelityfusion_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    rng = np.random.default_rng(0)
+    x = (rng.random((512, 2)) * 4).astype(np.float32)
+    y = (np.sin(x.sum(1, keepdims=True)) + 0.1 * rng.standard_normal((512, 1))).astype(np.float32)
+    gp = CIGP(kernel=ARDKernel(), se_analytic_nll=False, hybrid_nll=False)
+
+    def value_grad(fn, device):
+        p = tree_map(lambda a: a.requires_grad_(True), gp.init_params(2, device=device))
+        v = fn(p, torch.tensor(x, device=device), torch.tensor(y, device=device))
+        return float(v), [g.cpu() for g in torch.autograd.grad(v, tree_leaves(p))]
+
+    try:
+        mesh = make_n_mesh()
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        cuda.reset_launch_counts()
+        v, g = value_grad(lambda p, xx, yy: cigp_nll_nsharded(gp, p, xx, yy, mesh), dev)
+        counts = cuda.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    v_cpu, g_cpu = value_grad(lambda p, xx, yy: gp.nll(p, xx, yy), "cpu")
+    assert abs(v - v_cpu) <= 1e-4 * max(1.0, abs(v_cpu)), (v, v_cpu)
+    for a, b in zip(g, g_cpu):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item())
+    assert all(counts.get(k, 0) > 0 for k in ("gram", "chol", "tri_inv")), counts

@@ -218,6 +218,34 @@ def test_dim1_length_scale_gradient_sums_over_inputs():
                                four["length_scales"].grad.sum().item(), rtol=1e-5)
 
 
+@pytest.mark.parametrize("tracked", [False, True], ids=["nll", "nll_tracked"])
+def test_float32_gradient_matches_float64(tracked):
+    """The Kronecker backward forms each Gram's cotangent in the Grams'
+    float64: at n = 64, output (8, 8, 8) (`scripts/hogp_grad_precision.py`'s
+    CPU case) a float32 rotation out of the eigenbasis left the
+    signal-variance gradient 4e-2 off float64.  Every leaf within 1e-5."""
+    rng = np.random.default_rng(0)
+    n, shape = 64, (8, 8, 8)
+    x = rng.random((n, 4)).astype(np.float32)
+    base = np.sin(2 * np.pi * x.sum(axis=1)).astype(np.float32)
+    y = base.reshape((n, 1, 1, 1)) * rng.random(shape).astype(np.float32)
+    hogp = HOGP(TK.SquaredExponentialKernel(), shape)
+    p = hogp.init_params(4, device="cpu")
+
+    def grads(dtype):
+        q = tree_map(lambda a: a.to(dtype).requires_grad_(True), p)
+        xx, yy = torch.tensor(x, dtype=dtype), torch.tensor(y, dtype=dtype)
+        if tracked:
+            aux = tree_map(lambda a: a.to(dtype), hogp.tracking_aux0(n, device="cpu"))
+            loss = hogp.nll_tracked(q, aux, 0, xx, yy)[0]
+        else:
+            loss = hogp.nll(q, xx, yy)
+        return torch.autograd.grad(loss, tree_leaves(q))
+
+    for a, b in zip(grads(torch.float32), grads(torch.float64)):
+        assert float((a.double() - b).abs().max()) <= 1e-5 * float(b.abs().max()), (a, b)
+
+
 @pytest.mark.parametrize("l_dim,h_dim", [(4, 7), (6, 10), (5, 5), (14, 6)])
 def test_interp_identity_matches_jax(l_dim, h_dim):
     np.testing.assert_array_equal(interp_identity(l_dim, h_dim), j_interp(l_dim, h_dim))

@@ -46,13 +46,17 @@ NEW_MODULES = ("models.joint", "models.legacy", "utils.config", "utils.logging",
                "experiments.load_mfdata", "experiments.sweep", "experiments.plots",
                "utils.plotting", "examples.ex01_multifidelity_regression",
                "examples.ex02_mfbo_discrete", "examples.ex03_gar_fields",
-               "examples.ex04_mfbo_continuous")
+               "examples.ex04_mfbo_continuous", "parallel", "parallel.collectives",
+               "parallel.mesh", "parallel.nsharded", "parallel.kron_nsharded",
+               "parallel.multihost", "experiments.sharded_sweep",
+               "examples.ex05_large_n_scaling")
 
 
 def test_port_module_imports_pull_in_no_jax():
-    """Each module of the joint/legacy, BO and experiments slices, imported one after the other
-    in a fresh interpreter, loads neither JAX nor anything of the JAX
-    package (checked after every import, so a failure names its module)."""
+    """Each module of the joint/legacy, BO, experiments and sharding slices,
+    imported one after the other in a fresh interpreter, loads neither JAX
+    nor anything of the JAX package (checked after every import, so a
+    failure names its module)."""
     code = ("import importlib, json, sys\n"
             "bad = {}\n"
             f"for m in {NEW_MODULES!r}:\n"
@@ -147,6 +151,27 @@ def test_experiment_entry_points_default_to_cuda_and_raise_without_it(no_cuda, t
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert not list(tmp_path.iterdir())
+
+
+def test_sharding_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    """The mesh builders, `initialize_distributed`, the sharded sweep, the
+    scaling harness and example 05 raise before they start a process group
+    when no device is named."""
+    import torch.distributed as dist
+
+    from fidelityfusion_tpu_torch.examples import ex05_large_n_scaling
+    from fidelityfusion_tpu_torch.experiments.sharded_sweep import run_sharded_seed_sweep
+    from fidelityfusion_tpu_torch.parallel import make_mesh, make_n_mesh, make_rn_mesh
+    from fidelityfusion_tpu_torch.parallel.multihost import (
+        initialize_distributed, restart_scaling_efficiency)
+
+    for make in (make_mesh, make_n_mesh, lambda: make_rn_mesh(1), initialize_distributed,
+                 lambda: initialize_distributed("localhost:1", 4, 0),
+                 lambda: run_sharded_seed_sweep("forrester12", [0]), restart_scaling_efficiency,
+                 lambda: ex05_large_n_scaling.main([])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert not dist.is_initialized()
 
 
 def test_chip_smoke_refuses_without_a_card(no_cuda, capsys):
