@@ -30,7 +30,11 @@ prints no result line):
    Grams against the plain version in float64, within twice the plain
    float32 version's error; K2 also
    at CAR-large's n = 1792, K3a at (4, 2048) and (2, 1024) (phase 11's
-   restart groups on the (1, 1) and (2, 2) meshes); K3b at every K3a shape and at n = 64, 1024, 1792 and 2048; for
+   restart groups on the (1, 1) and (2, 2) meshes); K3b at every K3a shape and at
+   n = 64, 1024, 1792 and 2048; K4 (the NLML's Sigma gradient) at (4, 4096),
+   (4, 1024) and (1, 320) against float64 within float32's rounding bound,
+   timed beside the plain expression and `torch.matmul`'s W^T W, and both at
+   n = 256, 320 and 512, where `NLL_GRAD_MIN_N` sits; for
    K2/K3a also time the leaf alone; factor ill-conditioned SE
    Grams (relative nugget 1e-6) through K2/K3a and K3b against the plain
    versions in float32 and float64, and a batch with a negative pivot,
@@ -815,6 +819,67 @@ def kernel_checks(torch, device, report):
         shapes=[tri_rows[k] for k in sorted(tri_rows, key=lambda k: (k[1], k[0]))])
 
 
+def nll_grad_checks(torch, device, report):
+    """K4 (`ops/linalg.py:sigma_grad`) on W = inv(L) of SE Grams at the
+    restart path's shapes, (4, 4096), (4, 1024) and (1, 320), against the
+    plain expression in float64 on the same float32 inputs, within the
+    float32 rounding bound of the sums (`tests/test_torch_nll_grad.py`);
+    timed by device time beside the plain expression, `torch.matmul`'s
+    W^T W alone and the bound (B n^3 / 3 FLOPs, or W's lower triangle read
+    and dSigma written); then both sides at n = 256, 320 and 512, where
+    `NLL_GRAD_MIN_N` sits."""
+    from fidelityfusion_tpu_torch.ops import linalg
+    from fidelityfusion_tpu_torch.ops.blocked import chol_inv_padded
+
+    gen = torch.Generator().manual_seed(11)
+
+    def inputs(R, n):
+        A = se_gram(torch, R, n, gen, device)
+        W = chol_inv_padded(A)[1]
+        y = torch.randn((n, 1), generator=gen).to(device).expand(R, n, 1)
+        alpha = W.transpose(1, 2) @ (W @ y)
+        return W, alpha, torch.linspace(0.5, 2.0, R, device=device)
+
+    rows = []
+    for R, n in ((4, 4096), (4, 1024), (1, 320)):
+        W, alpha, g = inputs(R, n)
+        got = linalg.sigma_grad(W, alpha, g).double()
+        W64, a64 = W.double().tril(), alpha.double()
+        want = linalg.sigma_grad_plain(W64, a64, g.double())
+        u = 2.0 ** -24
+        gam = lambda m: m * u / (1 - m * u)  # noqa: E731
+        aW, aa = W64.abs(), a64.abs()
+        tol = (0.5 * g.double().abs())[:, None, None] * (
+            gam(n + 3) * (aW.transpose(1, 2) @ aW) + gam(4) * (aa @ aa.transpose(1, 2)))
+        err = (got - want).abs()
+        check(bool((err <= tol).all()),
+              f"K4 nll_grad R={R} n={n}: within the float32 rounding bound of float64 "
+              f"(max abs err {err.max().item():.3e}, worst share of the bound "
+              f"{(err / tol).max().item():.3f})")
+        calls = 5 if n >= 4096 else 20
+        ms = device_ms(torch, lambda: linalg.sigma_grad(W, alpha, g), calls=calls)
+        plain_ms = device_ms(torch, lambda: linalg.sigma_grad_plain(W, alpha, g), calls=calls)
+        lib_ms = device_ms(torch, lambda: torch.matmul(W.transpose(1, 2), W), calls=calls)
+        b_ms, b_by = bound(R * n ** 3 / 3, 4 * R * (n * (n + 1) // 2 + n * n + 2 * n))
+        print(f"K4 R={R} n={n}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"torch.matmul(W^T, W) {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.1f}% of it, all by device time (CUDA graphs)", flush=True)
+        rows.append(dict(shape=f"R={R} n={n}", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, max_abs_err=err.max().item()))
+    crossover = {}
+    for n in (256, 320, 512):
+        W, alpha, g = inputs(4, n)
+        k4 = device_ms(torch, lambda: linalg.sigma_grad(W, alpha, g))
+        plain = device_ms(torch, lambda: linalg.sigma_grad_plain(W, alpha, g))
+        crossover[f"R=4 n={n}"] = dict(ms=k4, plain_ms=plain)
+        print(f"K4 crossover R=4 n={n}: kernel {k4:.4f} ms  plain {plain:.4f} ms "
+              f"(device time; NLL_GRAD_MIN_N = {linalg.NLL_GRAD_MIN_N})", flush=True)
+    report["nll_grad"] = dict(
+        rows[0], name="nll_grad", source="fidelityfusion_tpu_torch/csrc/nll_grad.cu",
+        replaces="none (the library GEMM W^T W of ops/linalg.py:_MvnNll.backward)",
+        timing="device time, CUDA graph of 5-20 calls", shapes=rows, crossover=crossover)
+
+
 def count_device_ops(torch, device, report):
     """Device kernels and copies of one K2 call at n = 2048, one K3a call
     at (4, 1024) and one K3b call at each, under `torch.profiler`.  Run
@@ -1125,7 +1190,7 @@ def main_path(torch, device, iters, report):
     vdif = (pv - cov.diagonal()).abs().max().item()
     check(dif < 1e-3 and vdif < 1e-3,
           f"export_posterior matches forward: max |dmean| {dif:.2e}, |dvar| {vdif:.2e}")
-    for name in ("gram", "chol", "chol_batched", "tri_inv"):
+    for name in ("gram", "chol", "chol_batched", "tri_inv", "nll_grad"):
         check(counts.get(name, 0) > 0, f"main path launched {name} ({counts.get(name, 0)} times)")
 
 
@@ -2847,10 +2912,10 @@ def main(argv=None) -> int:
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}  "
           f"float32_matmul_precision={torch.get_float32_matmul_precision()}", flush=True)
 
-    from fidelityfusion_tpu_torch.ops import chol, cuda, gram
+    from fidelityfusion_tpu_torch.ops import chol, cuda, gram, linalg
 
     t = time.perf_counter()
-    out = cuda.build([gram._LIB, chol._CHOL, chol._TRI], verbose=True)
+    out = cuda.build([gram._LIB, chol._CHOL, chol._TRI, linalg._NLL_GRAD], verbose=True)
     print(f"build: {time.perf_counter() - t:.2f} s", flush=True)
     for line in out.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
@@ -2861,6 +2926,7 @@ def main(argv=None) -> int:
     report = {}
     phases = (
         ("kernels", lambda: (kernel_checks(torch, device, report),
+                             nll_grad_checks(torch, device, report),
                              kron_timings(torch, device, report),
                              ill_conditioned_checks(torch, device),
                              panel_checks(torch, device, report),
@@ -2886,7 +2952,8 @@ def main(argv=None) -> int:
     counts = report["main_counts"]
     kernels = []
     for key, label in (("gram", "K1 gram"), ("chol", "K2 chol"),
-                       ("chol_batched", "K3a chol_batched"), ("tri_inv", "K3b tri_inv")):
+                       ("chol_batched", "K3a chol_batched"), ("tri_inv", "K3b tri_inv"),
+                       ("nll_grad", "K4 nll_grad")):
         k = dict(report[key])
         k.update(name=label, route="cuda", launches=counts.get(key, 0), launches_by_path={
             path: c.get(key, 0) for path, c in report["launches_by_path"].items()})
@@ -2896,7 +2963,7 @@ def main(argv=None) -> int:
             f for f in ("timing", "call_ms", "cross_ms", "cross_bound_ms", "cross_plain_ms",
                         "cross_library_ms", "cross_max_abs_err", "d2", "d4", "f64", "bo", "d10",
                         "slab",
-                        "leaf_us", "device_ops_per_call", "shapes") if f in k)})
+                        "leaf_us", "device_ops_per_call", "shapes", "crossover") if f in k)})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -40,6 +40,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
+// The same copy reading only the first `bytes` (0, 4, 8, 12 or 16) of src and
+// writing zeros over the rest of dst; with 0, src is not read at all.
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+I64 = ctypes.c_longlong
 
 
 def nvcc_path() -> str:

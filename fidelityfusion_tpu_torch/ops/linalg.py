@@ -3,7 +3,8 @@
 Port of `fidelityfusion_tpu/ops/linalg.py`.  Every factorization goes
 through the hand-written kernels (`ops/blocked.py:chol_inv_padded`, i.e.
 K2/K3a + K3b on the card): each returns (L, W = inv(L)), and every solve
-becomes a product with W, so no triangular solve remains anywhere.
+becomes a product with W, so no triangular solve remains anywhere.  The
+NLML's Sigma gradient is K4 (`sigma_grad`, `csrc/nll_grad.cu`).
 Functions accept an optional leading batch dimension (the restart axis)
 on ``Sigma (*batch, n, n)``, with ``y (*batch, n, d)`` or ``(n, d)``.
 
@@ -22,8 +23,21 @@ from typing import Optional, Tuple
 
 import torch
 
+from fidelityfusion_tpu_torch.ops import cuda
+
 JITTER = 1e-6
 LOG2PI = math.log(2.0 * math.pi)
+
+# K4 (`csrc/nll_grad.cu`) forms the NLML's Sigma gradient from this many
+# rows on, the restart path's threshold (`ops/blocked.py:auto_block`).  By
+# device time on an H100 80GB HBM3 at 700 W, 4 restarts: K4 0.0217 ms
+# against the plain expression's 0.0184 at n = 256, 0.0260 against 0.0257
+# at 320, 0.0399 against 0.0458 at 512; so below it the library GEMM stays.
+NLL_GRAD_MIN_N = 320
+_NLL_GRAD = cuda.Library("nll_grad.cu", {"ff_nll_grad": [
+    cuda.PTR, cuda.I64, cuda.INT, cuda.PTR, cuda.INT, cuda.PTR, cuda.INT, cuda.PTR, cuda.PTR,
+    cuda.INT, cuda.INT, cuda.PTR]})
+NLL_GRAD_LAUNCHES = cuda.counter("nll_grad")  # K4
 
 
 def _factor(Sigma):
@@ -73,6 +87,46 @@ def cholesky(Sigma):
     return _factor(Sigma)[0]
 
 
+def sigma_grad_plain(W, alpha, g):
+    """dNLL/dSigma = g/2 (d W^T W - alpha alpha^T) as one expression: K4's
+    plain version, and the path below `NLL_GRAD_MIN_N` rows and in float64."""
+    d = alpha.shape[-1]
+    return g[..., None, None] * 0.5 * (d * (_mT(W) @ W) - alpha @ _mT(alpha))
+
+
+def sigma_grad(W, alpha, g):
+    """dNLL/dSigma = g/2 (d W^T W - alpha alpha^T) from W = inv(L)
+    ``(*batch, n, n)``, lower-triangular (its entries above the diagonal
+    are never read), alpha = Sigma^{-1} y ``(*batch, n, d)`` and the
+    NLML's incoming gradient g ``(*batch)``: K4 on CUDA tensors (float32;
+    W may be a cropped view of a padded inverse, its rows 16-byte
+    aligned), `sigma_grad_plain` on CPU tensors."""
+    if not W.is_cuda:
+        return sigma_grad_plain(W, alpha, g)
+    n, d = W.shape[-1], alpha.shape[-1]
+    W3 = W.reshape((-1, n, n))
+    B = W3.shape[0]
+    a3 = alpha.reshape((B, n, d)).contiguous()
+    g1 = g.reshape(-1)
+    if g1.shape[0] != B:
+        raise ValueError(f"sigma_grad: g has {g1.shape[0]} entries for {B} matrices")
+    cuda.require_cuda("sigma_grad", a3)
+    for t in (W3, g1):
+        if t.device != a3.device or t.dtype != torch.float32:
+            raise ValueError("sigma_grad: expected float32 tensors on one CUDA device")
+    if (W3.stride(-1) != 1 or W3.stride(-2) % 4 or (B > 1 and W3.stride(0) % 4)
+            or W3.data_ptr() % 16):
+        raise ValueError("sigma_grad: W's rows must be contiguous and 16-byte aligned")
+    out = torch.empty((B, n, n), dtype=W.dtype, device=W.device)
+    if B and n:
+        counter = torch.empty(1, dtype=torch.int32, device=W.device)  # K4's work counter
+        _NLL_GRAD.call("ff_nll_grad", W3.data_ptr(), W3.stride(0), W3.stride(1), a3.data_ptr(),
+                       d, g1.data_ptr(), g1.stride(0), out.data_ptr(), counter.data_ptr(), B, n,
+                       cuda.stream_ptr(W.device))
+        NLL_GRAD_LAUNCHES.launches += 1
+    return out.reshape(W.shape)
+
+
 class _MvnNll(torch.autograd.Function):
     """NLML from the saved (W, gamma) with the closed-form backward
 
@@ -80,7 +134,8 @@ class _MvnNll(torch.autograd.Function):
 
     Shared by `mvn_nll_fused`, `ops/blocked.py:mvn_nll_hybrid` and
     `mvn_nll_blocked`: on the card they all factor through the kernels,
-    so they differ only in how they pad."""
+    so they differ only in how they pad.  dL/dSigma is K4's (`sigma_grad`)
+    in float32 from `NLL_GRAD_MIN_N` rows on."""
 
     @staticmethod
     def forward(ctx, Sigma, y):
@@ -95,11 +150,10 @@ class _MvnNll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         W, gamma = ctx.saved_tensors
-        d = gamma.shape[-1]
         alpha = _mT(W) @ gamma
-        gg = g[..., None, None]
-        dSigma = gg * 0.5 * (d * (_mT(W) @ W) - alpha @ _mT(alpha))
-        return dSigma, gg * alpha
+        k4 = W.dtype == torch.float32 and W.shape[-1] >= NLL_GRAD_MIN_N
+        dSigma = (sigma_grad if k4 else sigma_grad_plain)(W, alpha, g)
+        return dSigma, g[..., None, None] * alpha
 
 
 def mvn_nll_fused(Sigma, y):
