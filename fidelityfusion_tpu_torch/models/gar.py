@@ -253,11 +253,14 @@ def train_GAR(model: GAR, data_manager: MultiFidelityDataManager, max_iter: int 
                     aux0=hogp.tracking_aux0(sx.shape[0], dev) if tracked else None)
             model.params["hogp"][i_fid] = stage_p["hogp"]
             model.params["tl"][i_fid - 1] = stage_p["tl"]
-            # the final residual dataset and posterior state for the cascade
+            # the final residual dataset and posterior state for the cascade;
+            # `add_data` appends to an entry it already holds, so a retrain's
+            # stale ``res-i`` goes first
             with torch.no_grad():
                 res_final = (yh - tl.apply(stage_p["tl"], yl) - shift) / scale
                 _, model.states[i_fid] = hogp.nll_with_state(stage_p["hogp"], sx, res_final,
                                                              y_var=rv)
+            data_manager.data_dict.pop(f"res-{i_fid}", None)
             data_manager.add_data(
                 raw_fidelity_name=f"res-{i_fid}", fidelity_index=None, x=sx.cpu().numpy(),
                 y=[res_final.cpu().numpy(), None if rv is None else rv.cpu().numpy()])

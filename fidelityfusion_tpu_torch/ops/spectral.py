@@ -26,11 +26,19 @@ step (the JAX package's unbatched ``lax.cond``).  Everything takes an
 optional leading restart dimension.  `jacobi_refine` returns the relative
 off-diagonal residual ``||B - diag(B)||_F / ||B||_F``, which callers thread
 through training as a running max.
+
+Two host-side counters, keyed by the matrix size n, count the tracking's
+work: full ``eigh`` refreshes (`_refresh`) and Jacobi refinements
+(`jacobi_refine`), one per call over a batch of restarts.  They are plain
+integers bumped on the host, so they never wait for the device; read them
+with `spectral_counts` and zero them with `reset_spectral_counts`, as
+`ops/cuda.py:launch_counts`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from collections import Counter
+from typing import Dict, Tuple
 
 import torch
 
@@ -39,6 +47,20 @@ from fidelityfusion_tpu_torch.ops.kron import eigh_pairs
 # Frobenius cap on the rotation generator: sigma(I + S) <= sqrt(1 + 0.7^2)
 # keeps the Newton-Schulz map x(3 - x^2)/2 well inside its convergence ball.
 _MAX_S_NORM = 0.7
+
+REFRESHES: Counter = Counter()  # n -> full eigh refreshes
+REFINEMENTS: Counter = Counter()  # n -> Jacobi refinements
+
+
+def spectral_counts() -> Dict[str, Dict[int, int]]:
+    """``{"refresh": {n: calls}, "jacobi": {n: calls}}`` since the last
+    `reset_spectral_counts`."""
+    return {"refresh": dict(REFRESHES), "jacobi": dict(REFINEMENTS)}
+
+
+def reset_spectral_counts() -> None:
+    REFRESHES.clear()
+    REFINEMENTS.clear()
 
 
 def _ns_orthonormalize(Q: torch.Tensor, steps: int = 3) -> torch.Tensor:
@@ -82,6 +104,7 @@ def jacobi_refine(K: torch.Tensor, V: torch.Tensor,
     """Refine an approximate eigenbasis ``V`` of symmetric ``K``; returns
     ``(w, V', res)`` with ``K ~= V' diag(w) V'^T`` and ``res`` the relative
     off-diagonal residual after the last sweep (``(*batch)``)."""
+    REFINEMENTS[K.shape[-1]] += 1
     B = (V.transpose(-1, -2) @ K) @ V
     eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
     for _ in range(sweeps):
@@ -93,6 +116,7 @@ def jacobi_refine(K: torch.Tensor, V: torch.Tensor,
 
 
 def _refresh(K):
+    REFRESHES[K.shape[-1]] += 1
     w, V = eigh_pairs(K)
     return w, V, torch.zeros(K.shape[:-2], dtype=K.dtype, device=K.device)
 
