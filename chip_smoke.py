@@ -34,7 +34,11 @@ prints no result line):
    n = 64, 1024, 1792 and 2048; K4 (the NLML's Sigma gradient) at (4, 4096),
    (4, 1024) and (1, 320) against float64 within float32's rounding bound,
    timed beside the plain expression and `torch.matmul`'s W^T W, and both at
-   n = 256, 320 and 512, where `NLL_GRAD_MIN_N` sits; for
+   n = 256, 320 and 512, where `NLL_GRAD_MIN_N` sits; K5 (the small mode
+   Grams' eigendecomposition) at (4, 8), (4, 16), (4, 32), (1, 64) and
+   (4, 64) against `torch.linalg.eigh` in float64, its device time and its
+   wall with a sync beside the library call's wall (which syncs), and the
+   crossover that sets `SMALL_EIGH_MAX_N`; for
    K2/K3a also time the leaf alone; factor ill-conditioned SE
    Grams (relative nugget 1e-6) through K2/K3a and K3b against the plain
    versions in float32 and float64, and a batch with a negative pivot,
@@ -880,6 +884,77 @@ def nll_grad_checks(torch, device, report):
         timing="device time, CUDA graph of 5-20 calls", shapes=rows, crossover=crossover)
 
 
+def wall_ms(fn, torch, calls: int = 20) -> float:
+    """Mean host milliseconds per call of ``fn`` followed by
+    `torch.cuda.synchronize`, after a warm-up call: what a caller that
+    waits for the result pays."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e3
+
+
+def small_eigh_checks(torch, device, report):
+    """K5 (`ops/kron.py:small_eigh`, `csrc/small_eigh.cu`) on SE Grams of
+    the integer grid 0..n-1 at length scales 1 to 4 grid steps (the GAR
+    cell's mode Grams, eigenvalues down to ~1e-16 of the largest) at (4, 8),
+    (4, 16), (4, 32), (1, 64) and (4, 64), against `torch.linalg.eigh` in
+    float64 (`tests/test_torch_small_eigh.py`'s bounds, eps = 2^-53:
+    |dlambda| <= 10 n eps ||K||_2, ||K V - V diag(w)||_F <= 10 n eps
+    ||K||_F, max |V^T V - I| <= 10 n eps, ascending); timed by device time
+    (CUDA graph) and by its wall with a sync, beside `eigh_plain` and
+    `torch.linalg.eigh` (each of which syncs on the solver's status), and
+    the bound (9 n^3 FLOPs a matrix at 67 TFLOP/s, or K read and w, V
+    written).  Prints the crossover: the shapes at which K5's wall with
+    its sync is below the library call's, and those at which it is not."""
+    from fidelityfusion_tpu_torch.ops import kron
+
+    eps = 2.0 ** -53
+    rows = []
+    for B, n in ((4, 8), (4, 16), (4, 32), (1, 64), (4, 64)):
+        g = torch.arange(n, dtype=torch.float64)
+        ls = torch.tensor([4.0]) if B == 1 else torch.linspace(1.0, 4.0, B)
+        sv = torch.linspace(0.5, 2.0, B)
+        K = torch.stack([s * torch.exp(-0.5 * (g[:, None] - g[None, :]) ** 2 / a ** 2)
+                         for a, s in zip(ls, sv)]).to(device)
+        w, V = kron.small_eigh(K)
+        w_ref = torch.linalg.eigh(K)[0]
+        norm2, fro = w_ref.abs().amax(-1), torch.linalg.matrix_norm(K)
+        dl = ((w - w_ref).abs().amax(-1) / (n * eps * norm2)).max().item()
+        res = (torch.linalg.matrix_norm(K @ V - V * w[:, None, :]) / (n * eps * fro)).max().item()
+        eye = torch.eye(n, dtype=K.dtype, device=device)
+        orth = ((V.transpose(1, 2) @ V - eye).abs().amax((-2, -1)) / (n * eps)).max().item()
+        ascending = bool((w[:, 1:] >= w[:, :-1]).all())
+        check(ascending and max(dl, res, orth) <= 10,
+              f"K5 small_eigh R={B} n={n}: against torch.linalg.eigh in units of n eps: "
+              f"|dlambda| / ||K||_2 {dl:.3f}, residual / ||K||_F {res:.3f}, "
+              f"orthogonality {orth:.3f} (each <= 10), ascending {ascending}")
+        ms = device_ms(torch, lambda: kron.small_eigh(K))
+        call_ms = wall_ms(lambda: kron.small_eigh(K), torch)
+        plain_ms = wall_ms(lambda: kron.eigh_plain(K), torch)
+        lib_ms = wall_ms(lambda: torch.linalg.eigh(K), torch)
+        b_ms, b_by = bound(9 * B * n ** 3, 8 * B * (2 * n * n + n))
+        print(f"K5 R={B} n={n}: kernel {ms:.4f} ms (device time, CUDA graph), "
+              f"{call_ms:.4f} ms a call with its sync; eigh_plain {plain_ms:.4f} ms, "
+              f"torch.linalg.eigh {lib_ms:.4f} ms (walls, each with its sync); bound "
+              f"{b_ms:.6f} ms ({b_by})", flush=True)
+        rows.append(dict(shape=f"R={B} n={n}", ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=(w - w_ref).abs().max().item()))
+    faster = [r["shape"] for r in rows if r["call_ms"] < r["library_ms"]]
+    slower = [r["shape"] for r in rows if r["call_ms"] >= r["library_ms"]]
+    print(f"K5 crossover: its wall with a sync is below torch.linalg.eigh's at {faster}, "
+          f"not at {slower}; SMALL_EIGH_MAX_N = {kron.SMALL_EIGH_MAX_N}", flush=True)
+    report["small_eigh"] = dict(
+        rows[2], name="small_eigh", source="fidelityfusion_tpu_torch/csrc/small_eigh.cu",
+        replaces="none (torch.linalg.eigh's syevd on ops/kron.py:eigh_pairs' mode Grams)",
+        timing="device time, CUDA graph of 20 calls; walls with a sync", shapes=rows,
+        crossover=dict(faster=faster, slower=slower, max_n=kron.SMALL_EIGH_MAX_N))
+
+
 def count_device_ops(torch, device, report):
     """Device kernels and copies of one K2 call at n = 2048, one K3a call
     at (4, 1024) and one K3b call at each, under `torch.profiler`.  Run
@@ -1415,7 +1490,7 @@ def plain_kron_nll(torch, hogp, params, x, y, y_var=None, dtype=None) -> float:
     jit = torch.tensor([hogp.jitter], dtype=dtype, device=x.device)
     Ks = [K(x, x, jit, y_var)] + [K(g, g) for g in hogp.grids(p)]
     Kb, yb, nb = kron._batched(Ks, y.to(dtype), hogp.noise(p))
-    pairs = [kron.eigh_pairs(Km) for Km in Kb]
+    pairs = [kron.eigh_plain(Km) for Km in Kb]
     loss = kron._loss_and_saved([q[0] for q in pairs], [q[1] for q in pairs], yb, nb)[0]
     return float(loss[0])
 
@@ -1641,7 +1716,7 @@ def gar_path(torch, device, iters, report):
                                           f"({sorted(probe.max_res)})")
     check(bool((var > 0).all()), "GAR forward: variances > 0")
     rmse, rel = field_metrics("GAR", mean, truth)
-    cascade_launches("GAR", ("gram",), counts)
+    cascade_launches("GAR", ("gram", "small_eigh"), counts)
     report["launches_by_path"]["GAR"] = counts
     report["kron"]["GAR"] = dict(stages=stages, rmse=rmse, rel_err=rel)
 
@@ -2912,10 +2987,11 @@ def main(argv=None) -> int:
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}  "
           f"float32_matmul_precision={torch.get_float32_matmul_precision()}", flush=True)
 
-    from fidelityfusion_tpu_torch.ops import chol, cuda, gram, linalg
+    from fidelityfusion_tpu_torch.ops import chol, cuda, gram, kron, linalg
 
     t = time.perf_counter()
-    out = cuda.build([gram._LIB, chol._CHOL, chol._TRI, linalg._NLL_GRAD], verbose=True)
+    out = cuda.build([gram._LIB, chol._CHOL, chol._TRI, linalg._NLL_GRAD, kron._SMALL_EIGH],
+                     verbose=True)
     print(f"build: {time.perf_counter() - t:.2f} s", flush=True)
     for line in out.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
@@ -2927,6 +3003,7 @@ def main(argv=None) -> int:
     phases = (
         ("kernels", lambda: (kernel_checks(torch, device, report),
                              nll_grad_checks(torch, device, report),
+                             small_eigh_checks(torch, device, report),
                              kron_timings(torch, device, report),
                              ill_conditioned_checks(torch, device),
                              panel_checks(torch, device, report),
@@ -2953,7 +3030,7 @@ def main(argv=None) -> int:
     kernels = []
     for key, label in (("gram", "K1 gram"), ("chol", "K2 chol"),
                        ("chol_batched", "K3a chol_batched"), ("tri_inv", "K3b tri_inv"),
-                       ("nll_grad", "K4 nll_grad")):
+                       ("nll_grad", "K4 nll_grad"), ("small_eigh", "K5 small_eigh")):
         k = dict(report[key])
         k.update(name=label, route="cuda", launches=counts.get(key, 0), launches_by_path={
             path: c.get(key, 0) for path, c in report["launches_by_path"].items()})

@@ -1,12 +1,14 @@
 """Kronecker / tensor-algebra primitives for high-order GPs.
 
 Port of `fidelityfusion_tpu/ops/kron.py`: mode products are batched
-matmuls, per-mode symmetric eigendecompositions are `torch.linalg.eigh`,
-and the Kronecker covariance ``K_0 (x) K_1 (x) ... (x) K_M`` is never
-formed.  Every function takes an optional leading restart dimension R:
-a mode Gram is ``(n, n)`` or ``(R, n, n)``, the targets ``(n, d_1..d_M)``
-(shared by every restart) or ``(R, n, d_1..d_M)``, the noise a scalar or
-``(R,)``; ``eigh`` then runs batched over R and the loss is ``(R,)``.
+matmuls, per-mode symmetric eigendecompositions are `eigh_pairs` (K5,
+`csrc/small_eigh.cu`, for the small mode Grams on the card, else
+`torch.linalg.eigh`), and the Kronecker covariance
+``K_0 (x) K_1 (x) ... (x) K_M`` is never formed.  Every function takes an
+optional leading restart dimension R: a mode Gram is ``(n, n)`` or ``(R,
+n, n)``, the targets ``(n, d_1..d_M)`` (shared by every restart) or ``(R,
+n, d_1..d_M)``, the noise a scalar or ``(R,)``; ``eigh`` then runs batched
+over R and the loss is ``(R,)``.
 
 `kron_nlml` is a `torch.autograd.Function` whose backward is the closed
 form of the JAX package's `_kron_nlml_bwd`: it reuses the forward's
@@ -32,17 +34,48 @@ cotangent rotated back from its eigenbasis, runs in the Gram's float64
 checks the solver's status, on the CPU and on the card), so a matrix with
 a non-finite entry is swapped for the identity before ``eigh`` and its
 eigenvalues come back NaN: that restart's loss is NaN (and the trainer
-rolls it back) while the others train on, as in the JAX package.
+rolls it back) while the others train on, as in the JAX package.  K5
+screens alike inside its one launch.
+
+That status check is a device sync, and on the card ``torch.linalg.eigh``
+runs cuSOLVER's ``syevd`` on a batch's matrices one after another.  So the
+mode Grams of up to `SMALL_EIGH_MAX_N` rows, decomposed for every restart
+at every step, go through K5 (`small_eigh`): one launch, nothing read back.
+Its Jacobi sweeps run until the off-diagonal norm is n 2^-53 ||K||_F, which
+leaves eigenvalue errors of the size ``syevd``'s are, and every consumer of
+the pairs is invariant to an eigenvector's sign and to the basis chosen
+inside a tied eigenspace.  `eigh_pairs` keeps ``torch.linalg.eigh`` on the
+CPU, for larger Grams (K_0 at its refreshes and in the posterior states),
+and where autograd records through K (`models/hogp.py:HOGP.nll_with_state`
+under grad): K5 has no backward.  Host counters (`SMALL_EIGH_CALLS`,
+`LIBRARY_EIGH_CALLS`, read through `ops/spectral.py:spectral_counts`)
+count each route's calls by n.
 """
 
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Sequence, Tuple
 
 import torch
 
+from fidelityfusion_tpu_torch.ops import cuda
+
 LOG2PI = math.log(2.0 * math.pi)
+
+# K5 (`csrc/small_eigh.cu`) decomposes the CUDA Grams of up to this many
+# rows, its own limit (its shared memory).  A call's wall with its sync on
+# an H100 80GB HBM3 at 700 W, K5 against torch.linalg.eigh
+# (`chip_smoke.small_eigh_checks`, SE Grams): 0.065 against 0.150 ms at
+# (4, 8), 0.173 against 0.297 at (4, 32), 0.680 against 0.893 at (1, 64),
+# 0.665 against 3.263 at (4, 64): K5 is ahead at every size it takes.
+SMALL_EIGH_MAX_N = 64
+_SMALL_EIGH = cuda.Library("small_eigh.cu", {"ff_small_eigh": [
+    cuda.PTR, cuda.PTR, cuda.PTR, cuda.INT, cuda.INT, cuda.PTR]})
+SMALL_EIGH_LAUNCHES = cuda.counter("small_eigh")  # K5
+SMALL_EIGH_CALLS: Counter = Counter()  # n -> eigh_pairs calls through K5
+LIBRARY_EIGH_CALLS: Counter = Counter()  # n -> eigh_pairs calls through torch.linalg.eigh
 
 
 def mode_dot(tensor: torch.Tensor, matrix: torch.Tensor, mode: int) -> torch.Tensor:
@@ -87,13 +120,45 @@ def eigh_pairs(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``K`` ``(n, n)`` or ``(R, n, n)``, as ``jnp.linalg.eigh`` symmetrizes its
     input: ``(values, vectors)`` in K's dtype, decomposed in float64 (see
     the module docstring).  A matrix with a non-finite entry gives NaN
-    values and identity vectors, and raises nothing."""
+    values and identity vectors, and raises nothing.  K5 (`small_eigh`) on
+    a CUDA ``K`` of at most `SMALL_EIGH_MAX_N` rows that autograd does not
+    record through, else `eigh_plain`."""
+    n = K.shape[-1]
+    if (K.is_cuda and n <= SMALL_EIGH_MAX_N
+            and not (torch.is_grad_enabled() and K.requires_grad)):
+        SMALL_EIGH_CALLS[n] += 1
+        w, V = small_eigh(K.double())
+        return w.to(K.dtype), V.to(K.dtype)
+    LIBRARY_EIGH_CALLS[n] += 1
+    return eigh_plain(K)
+
+
+def eigh_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`eigh_pairs` by ``torch.linalg.eigh``: K5's plain version."""
     bad = ~torch.isfinite(K).all(-1).all(-1)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     K = torch.where(bad[..., None, None], eye, 0.5 * (K + K.transpose(-1, -2)))
     w, V = torch.linalg.eigh(K.double())
     w, V = w.to(K.dtype), V.to(K.dtype)
     return torch.where(bad[..., None], torch.full_like(w, float("nan")), w), V
+
+
+def small_eigh(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: `eigh_pairs` of a CUDA float64 ``K`` ``(*batch, n, n)``, n at most
+    `SMALL_EIGH_MAX_N`, in one launch on the current stream
+    (`csrc/small_eigh.cu`): no sync, no workspace, outputs from
+    `torch.empty`."""
+    n = K.shape[-1]
+    K3 = K.reshape((-1, n, n)).contiguous()
+    cuda.require_cuda("small_eigh", K3, dtype=torch.float64)
+    B = K3.shape[0]
+    w = torch.empty((B, n), dtype=K.dtype, device=K.device)
+    V = torch.empty((B, n, n), dtype=K.dtype, device=K.device)
+    if B and n:
+        _SMALL_EIGH.call("ff_small_eigh", K3.data_ptr(), w.data_ptr(), V.data_ptr(), B, n,
+                         cuda.stream_ptr(K.device))
+        SMALL_EIGH_LAUNCHES.launches += 1
+    return w.reshape(K.shape[:-1]), V.reshape(K.shape)
 
 
 def _clamp_psd(lams):

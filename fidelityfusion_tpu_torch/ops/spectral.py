@@ -29,10 +29,11 @@ through training as a running max.
 
 Two host-side counters, keyed by the matrix size n, count the tracking's
 work: full ``eigh`` refreshes (`_refresh`) and Jacobi refinements
-(`jacobi_refine`), one per call over a batch of restarts.  They are plain
-integers bumped on the host, so they never wait for the device; read them
-with `spectral_counts` and zero them with `reset_spectral_counts`, as
-`ops/cuda.py:launch_counts`.
+(`jacobi_refine`), one per call over a batch of restarts; two more count
+every `kron.eigh_pairs` call by the route it took, K5 or
+``torch.linalg.eigh``.  They are plain integers bumped on the host, so they
+never wait for the device; read them with `spectral_counts` and zero them
+with `reset_spectral_counts`, as `ops/cuda.py:launch_counts`.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from fidelityfusion_tpu_torch.ops import kron
 from fidelityfusion_tpu_torch.ops.kron import eigh_pairs
 
 # Frobenius cap on the rotation generator: sigma(I + S) <= sqrt(1 + 0.7^2)
@@ -53,14 +55,18 @@ REFINEMENTS: Counter = Counter()  # n -> Jacobi refinements
 
 
 def spectral_counts() -> Dict[str, Dict[int, int]]:
-    """``{"refresh": {n: calls}, "jacobi": {n: calls}}`` since the last
-    `reset_spectral_counts`."""
-    return {"refresh": dict(REFRESHES), "jacobi": dict(REFINEMENTS)}
+    """``{"refresh": {n: calls}, "jacobi": {n: calls}, "small_eigh": {n:
+    calls}, "library_eigh": {n: calls}}`` since the last
+    `reset_spectral_counts`: the last two are `kron.eigh_pairs`' calls
+    through K5 and through ``torch.linalg.eigh``."""
+    return {"refresh": dict(REFRESHES), "jacobi": dict(REFINEMENTS),
+            "small_eigh": dict(kron.SMALL_EIGH_CALLS),
+            "library_eigh": dict(kron.LIBRARY_EIGH_CALLS)}
 
 
 def reset_spectral_counts() -> None:
-    REFRESHES.clear()
-    REFINEMENTS.clear()
+    for c in (REFRESHES, REFINEMENTS, kron.SMALL_EIGH_CALLS, kron.LIBRARY_EIGH_CALLS):
+        c.clear()
 
 
 def _ns_orthonormalize(Q: torch.Tensor, steps: int = 3) -> torch.Tensor:

@@ -211,10 +211,14 @@ def test_spectral_counters_count_a_tracked_stage():
     spectral.reset_spectral_counts()
     adam_scan_aux(_Gar0LossTracked(hogp), batch, aux, 5e-2, 100,
                   loss_args=(torch.tensor(x), torch.tensor(y)))
-    assert spectral.spectral_counts() == {"refresh": {20: 2}, "jacobi": {20: 98}}
+    # on the CPU every eigh_pairs call, the two refreshes and the two 3 x 3
+    # mode Grams a step, takes torch.linalg.eigh
+    assert spectral.spectral_counts() == {"refresh": {20: 2}, "jacobi": {20: 98},
+                                          "small_eigh": {}, "library_eigh": {20: 2, 3: 200}}
     assert cuda.launch_counts() == launches
     spectral.reset_spectral_counts()
-    assert spectral.spectral_counts() == {"refresh": {}, "jacobi": {}}
+    assert spectral.spectral_counts() == {"refresh": {}, "jacobi": {}, "small_eigh": {},
+                                          "library_eigh": {}}
 
 
 def test_train_gar_twice_on_one_manager_keeps_the_residual_rows():
