@@ -75,7 +75,7 @@ prints no result line):
    (60 steps); `CIGP(x64_factor=True)` at n = 1024 against a numpy
    float64 NLML to 1e-10, with no kernel launched in it;
 7. the unbatched paths: a 20-step SE CIGP fit at n = 2048 (`se_nlml`) and
-   an ARD fit (`mvn_nll_hybrid`);
+   an ARD fit (`linalg.mvn_nll`);
 8. multi-fidelity BO, each run driven alike: `mf_bo_discrete` on
    Forrester(2) with the AR surrogate, 10 iterations from the {1: 10,
    2: 4} design at the loop's defaults (UCB on seeds 0, 1, 2; EI, ES and
@@ -833,7 +833,7 @@ def nll_grad_checks(torch, device, report):
     and dSigma written); then both sides at n = 256, 320 and 512, where
     `NLL_GRAD_MIN_N` sits."""
     from fidelityfusion_tpu_torch.ops import linalg
-    from fidelityfusion_tpu_torch.ops.blocked import chol_inv_padded
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv_padded
 
     gen = torch.Generator().manual_seed(11)
 
@@ -1023,7 +1023,7 @@ def ill_conditioned_checks(torch, device):
 def panel_checks(torch, device, report, seed=7):
     """K2 and K3a (with K3b) at one 64-row panel, the BO loop's stage
     factorizations, on two inputs of 64 SE Grams each: full 64-row Grams,
-    and 32-row Grams identity-padded to 64 as `ops/blocked.py:
+    and 32-row Grams identity-padded to 64 as `ops/chol.py:
     chol_inv_padded` gives the kernels a short stage's (the NLML is then the
     live block's).  K3a takes them 4 at a time (the restart batch), K2 one
     at a time.  As in `ill_conditioned_checks`, the kernels' error against
@@ -1032,8 +1032,8 @@ def panel_checks(torch, device, report, seed=7):
     over the batch): the bar is float32's rounding at this shape, not a
     fixed number.  64 matrices: over 4 or 8, a sum of float32 errors
     varies by several times between inputs, and the ratio with it."""
-    from fidelityfusion_tpu_torch.ops.blocked import _pad_identity
-    from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain, tri_inv, tri_inv_plain
+    from fidelityfusion_tpu_torch.ops.chol import (
+        _pad_identity, chol_inv, chol_inv_plain, tri_inv, tri_inv_plain)
     from fidelityfusion_tpu_torch.ops.gram import gram_plain
 
     gen = torch.Generator().manual_seed(seed)
@@ -2169,7 +2169,7 @@ def unbatched_paths(torch, device):
     y = torch.as_tensor(((ys[0] - ys[0].mean()) / ys[0].std()).astype("float32"), device=device)
     ms_per_step = {}
     for name, kernel in (("se_nlml (SE)", SquaredExponentialKernel()),
-                         ("mvn_nll_hybrid (ARD)", ARDKernel())):
+                         ("mvn_nll (ARD)", ARDKernel())):
         gp = CIGP(kernel=kernel)
         before = cuda.launch_counts().get("chol", 0)
         torch.cuda.synchronize()
@@ -2632,7 +2632,7 @@ def sharding_one_rank(torch, device, iters, report):
     # cigp_nll_nsharded at n = 2048, ARD d_in = 2, against the unsharded CIGP.nll
     n = 2048
     x, y = _shard_fixture(torch, n, 2, 0, device)
-    gp = CIGP(kernel=ARDKernel(), se_analytic_nll=False, hybrid_nll=False)
+    gp = CIGP(kernel=ARDKernel())
     p = gp.init_params(2, device=device)
     label = "sharded NLML+grad n=2048 (1 rank)"
     (v, g), _, _ = sharded_run(torch, label, lambda: _value_grad(
@@ -2677,8 +2677,8 @@ def sharding_one_rank(torch, device, iters, report):
         torch, label, lambda: fit_restarts_nsharded(gp, batch, x, y, rn, steps=20, lr=5e-2,
                                                     r_axis="r"),
         ("gram", "chol_batched", "tri_inv"), report)
-    blocked = _CigpNLL(CIGP(kernel=ARDKernel(), blocked_nll=True))
-    _, sec_u, _ = _timed_run(torch, lambda: adam_scan(blocked, batch, 5e-2, 20, loss_args=(x, y)))
+    batched = _CigpNLL(CIGP(kernel=ARDKernel()))
+    _, sec_u, _ = _timed_run(torch, lambda: adam_scan(batched, batch, 5e-2, 20, loss_args=(x, y)))
     final = final.cpu()
     with torch.no_grad():
         v_best = float(gp.nll(best, x, y))
@@ -2871,7 +2871,7 @@ def sharding_rank_main(out_dir, rank, world_size, port) -> int:
     device = torch.device("cuda")
     initialize_distributed(f"localhost:{port}", world_size, rank, device=device, backend="gloo")
     mesh, rn = make_n_mesh(device=device), make_rn_mesh(2, device=device)
-    gp = CIGP(kernel=ARDKernel(), se_analytic_nll=False, hybrid_nll=False)
+    gp = CIGP(kernel=ARDKernel())
     out = {}
 
     def record(name, fn, ref_name, ref_fn):

@@ -157,7 +157,7 @@ __device__ __noinline__ void gemm_tile(const float* Ag, const float* Bg, size_t 
 // to Wt if given.  S may be Lo; LT (32 x LDH) is scratch.  A pivot that is
 // not positive makes everything after it NaN.
 //
-// L: the 32 column steps of ops/blocked.py:_leaf_chol_inv.  Lane r keeps
+// L: the 32 column steps of ops/chol.py:_leaf_chol_inv.  Lane r keeps
 // in registers row r of the block's trailing columns, shifted left by one at
 // every step so that column j is always a[0]: every step is the same short
 // branch-free body.  At step j each lane publishes its raw entry a_rj in

@@ -86,7 +86,7 @@ def main(argv=None):
     # --- 3. n-axis sharded training over the ranks
     mesh = make_n_mesh(device=device)  # every rank of the world on the "n" dim
     P = axis_size(mesh, "n")
-    gp2 = CIGP(kernel=ARDKernel(), se_analytic_nll=False, hybrid_nll=False)
+    gp2 = CIGP(kernel=ARDKernel())
     t0 = synced_time(device)
     _, losses2 = fit_nsharded(gp2, gp2.init_params(1, device=device), x, y, mesh, steps=60,
                               lr=5e-2)

@@ -78,7 +78,7 @@ def run_sharded_seed_sweep(dataset: str, seeds: Sequence[int], n_high: int = 16,
     dataset, n_high), the same on every rank: the protocol of
     `experiments/sweep.py:run_single(method='AR')` with the normalization
     folded into the data build."""
-    gp = CIGP(kernel=SquaredExponentialKernel(), hybrid_nll=False)
+    gp = CIGP(kernel=SquaredExponentialKernel(), se_analytic_nll=False)
     if mesh is None:
         mesh = make_mesh(device=device)
     dev = torch.device(mesh.device_type)

@@ -339,21 +339,6 @@ class _CigpNLL:
         return self.gp.nll(p, x, y, y_var=y_var, mask=mask)
 
 
-def _blocked_variant(loss_fn, n_rows: int):
-    """Restart batches of >= 320 rows train through the batched GEMM-only
-    NLML (`ops/blocked.py:mvn_nll_blocked`, K3a + K3b); smaller stages keep
-    the fused path."""
-    if n_rows < 320:
-        return loss_fn
-    self_obj = getattr(loss_fn, "__self__", None)
-    if isinstance(self_obj, CIGP) and loss_fn.__name__ == "nll":
-        return _CigpNLL(dataclasses.replace(self_obj, blocked_nll=True))
-    gp = getattr(loss_fn, "gp", None)
-    if isinstance(gp, CIGP) and dataclasses.is_dataclass(loss_fn):
-        return dataclasses.replace(loss_fn, gp=dataclasses.replace(gp, blocked_nll=True))
-    return loss_fn
-
-
 def _run_stage(loss_fn, params, steps, lr, n_restarts, generator,
                kernel_spec=None, x=None, gp_field=None, loss_args=None, aux0=None):
     """One stage's Adam fit; with restarts, over the deterministic
@@ -361,13 +346,10 @@ def _run_stage(loss_fn, params, steps, lr, n_restarts, generator,
     ``params``), else random jitter from ``generator``.
 
     ``aux0``: one (unbatched) aux carry for an aux-threading loss (the HOGP
-    tracked eigenbasis), broadcast over the restarts here.  Aux losses
-    bypass `_blocked_variant` (it swaps CIGP losses only)."""
+    tracked eigenbasis), broadcast over the restarts here."""
     if n_restarts <= 1:
         result = fit(loss_fn, params, steps=steps, lr=lr, loss_args=loss_args, aux0=aux0)
         return result.params, result.losses
-    if x is not None and aux0 is None:
-        loss_fn = _blocked_variant(loss_fn, x.shape[0])
     if kernel_spec is not None and x is not None:
         gp_params = params[gp_field] if gp_field else params
         gp_inits = gp_restart_batch(kernel_spec, gp_params, x, n_restarts, generator)

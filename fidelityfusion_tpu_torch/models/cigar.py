@@ -7,9 +7,8 @@ diagonal broadcast over the output columns.
 
     Y_hi(x) = TL_i(Y_lo(x)) + Res_i(x)       (outputs flattened to (n, D))
 
-Restart stages of at least 320 rows train through the batched GEMM-only
-NLML (`models/ar.py:_blocked_variant`: K1 + K3a + K3b), the winner's
-re-check and the predictions through K2.
+Restart stages train through the batched NLML (`linalg.mvn_nll`: K1 +
+K3a + K3b), the winner's re-check and the predictions through K2.
 """
 
 from __future__ import annotations

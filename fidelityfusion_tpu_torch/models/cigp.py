@@ -29,12 +29,15 @@ from typing import Tuple
 
 import torch
 
-from fidelityfusion_tpu_torch.ops import linalg
-from fidelityfusion_tpu_torch.ops.kernels import Kernel
+from fidelityfusion_tpu_torch.ops import fused_se, linalg
+from fidelityfusion_tpu_torch.ops.kernels import Kernel, SquaredExponentialKernel
 from fidelityfusion_tpu_torch.utils.device import resolve_device
 from fidelityfusion_tpu_torch.utils.tree import tree_map
 
 JITTER = linalg.JITTER
+# rows from which one SE matrix trains through the analytic NLML
+# (`ops/fused_se.py:se_nlml`), the JAX package's default
+SE_ANALYTIC_MIN_N = 512
 
 
 def _targets(y):
@@ -64,20 +67,17 @@ def build_sigma(gp, params, x, y_var=None, mask=None):
 
 @dataclasses.dataclass(frozen=True)
 class CIGP:
-    """Static spec of a conditionally-independent multi-output GP; the
-    fields and the NLML dispatch order are the JAX package's."""
+    """Static spec of a conditionally-independent multi-output GP: the JAX
+    package's fields, less the four that choose its NLML route (`nll`
+    chooses from what it is given)."""
 
     kernel: Kernel
     jitter: float = JITTER
     relative_jitter: bool = False
-    fused_nll: bool = True
-    # GEMM-only batched NLML (ops/blocked.py:mvn_nll_blocked); the restart
-    # trainer turns it on for stages of >= 320 rows (models/ar.py)
-    blocked_nll: bool = False
-    hybrid_nll: bool = True
-    hybrid_min_n: int = 512
     # f32 RELATIVE noise floor: bounds cond(Sigma) <= n / min_noise
     min_noise: float = 1e-4
+    # one unmasked SE matrix of >= SE_ANALYTIC_MIN_N rows trains through
+    # `ops/fused_se.py:se_nlml` (see `nll`)
     se_analytic_nll: bool = True
     # float64 Gram, factorization and posterior for Sigmas beyond float32
     x64_factor: bool = False
@@ -144,37 +144,23 @@ class CIGP:
         return tuple(o.to(torch.float32) for o in out)
 
     def nll(self, params, x, y, y_var=None, mask=None) -> torch.Tensor:
-        """Negative log marginal likelihood (``(*batch)``) to minimize."""
+        """Negative log marginal likelihood (``(*batch)``) to minimize: the
+        float64 island under ``x64_factor``; the analytic SE NLML
+        (`ops/fused_se.py:se_nlml`) for one SE matrix (no restart axis) of
+        at least `SE_ANALYTIC_MIN_N` rows, without mask, targets' variances
+        or relative jitter; else `linalg.mvn_nll` of `build_sigma`'s Sigma
+        (K1, K2/K3a + K3b, and K4 from `linalg.NLL_GRAD_MIN_N` rows)."""
         if self.x64_factor:
             return self.nll64(params, x, y, y_var, mask).to(torch.float32)
         y2 = _targets(y)
-        if (
-            self.se_analytic_nll
-            and self.fused_nll
-            and self.hybrid_nll
-            and not self.blocked_nll
-            and mask is None
-            and y_var is None
-            and not self.relative_jitter
-            and x.shape[0] >= self.hybrid_min_n
-            and type(self.kernel).__name__ == "SquaredExponentialKernel"
-            and "log_beta" in params
-        ):
-            from fidelityfusion_tpu_torch.ops.fused_se import se_nlml
-
-            return se_nlml(params, x, y2, self.jitter, min_noise=self.min_noise)
-        Sigma = build_sigma(self, params, x, y_var, mask)
-        if self.blocked_nll:
-            from fidelityfusion_tpu_torch.ops.blocked import mvn_nll_blocked
-
-            return mvn_nll_blocked(Sigma, y2, mask=mask)
-        if self.fused_nll and mask is None:
-            if self.hybrid_nll and x.shape[0] >= self.hybrid_min_n:
-                from fidelityfusion_tpu_torch.ops.blocked import mvn_nll_hybrid
-
-                return mvn_nll_hybrid(Sigma, y2)
-            return linalg.mvn_nll_fused(Sigma, y2)
-        return linalg.mvn_nll(Sigma, y2, mask=mask)
+        if (self.se_analytic_nll
+                and type(self.kernel) is SquaredExponentialKernel
+                and "log_beta" in params
+                and mask is None and y_var is None and not self.relative_jitter
+                and x.shape[0] >= SE_ANALYTIC_MIN_N
+                and params["log_beta"].ndim == 1):
+            return fused_se.se_nlml(params, x, y2, self.jitter, min_noise=self.min_noise)
+        return linalg.mvn_nll(build_sigma(self, params, x, y_var, mask), y2, mask=mask)
 
     def _noise_out(self, params, x_train):
         """The noise added to predictive variances, floored by the mean

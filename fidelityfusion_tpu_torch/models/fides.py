@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from fidelityfusion_tpu_torch.ops import linalg
+from fidelityfusion_tpu_torch.ops.chol import chol_inv_padded
 from fidelityfusion_tpu_torch.ops.gram import gram
 from fidelityfusion_tpu_torch.utils.device import resolve_device
 
@@ -105,7 +106,7 @@ class FIDES:
         Sigma = self._sigma(params, x_train, bounds)
         K_s = self.kernel(params, x_train, x_test, bounds)
         K_ss = self.kernel(params, x_test, x_test, bounds)
-        _, W = linalg._factor(Sigma)
+        _, W = chol_inv_padded(Sigma)
         V = W @ K_s
         alpha = W.T @ (W @ y_train.reshape(-1, 1))
         return (K_s.T @ alpha).reshape(-1), K_ss - V.T @ V

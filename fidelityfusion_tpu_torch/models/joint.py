@@ -9,7 +9,7 @@ minimized by one unbatched Adam (`train/fit.py:fit`) over the whole
 parameter tree, so rho / b, the lifts and every stage's kernel co-adapt.
 Each step evaluates every stage's NLML: on the card a K1 Gram and a K2 +
 K3b factorization per CIGP stage (`se_nlml` for an SE stage of >= 512 rows
-without targets' variances, `mvn_nll_hybrid` / `mvn_nll_fused` otherwise),
+without targets' variances, `linalg.mvn_nll` otherwise),
 a K1 Gram per HOGP mode and an exact ``eigh`` per GAR stage (`HOGP.nll`,
 never the tracked spectrum).
 
@@ -168,8 +168,8 @@ class _JointGarLoss:
 class _JointCigarLoss:
     """Joint NLML over a CIGAR cascade (outputs flattened through CIGP).
     ``rv`` always reaches the CIGP as ``y_var`` (zeros on subset data), so
-    every stage takes the `build_sigma` route (`mvn_nll_hybrid` /
-    `mvn_nll_fused`), as in the JAX package."""
+    every stage takes the `build_sigma` route (`linalg.mvn_nll`), as in
+    the JAX package."""
 
     gps: tuple
     tls: tuple

@@ -4,10 +4,10 @@ Cholesky with its diagonal-block inverses, and the triangular inverse.
     L, Wd = chol_inv(A)      # A (n, n) -> K2,  A (R, n, n) -> K3a
     W     = tri_inv(L, Wd)   # W = inv(L), K3b
 
-``n`` must be a multiple of `PANEL` (callers pad with identity rows, see
-`ops/blocked.py:chol_inv_padded`).  ``Wd`` holds the inverses of L's 64x64
-diagonal blocks, ``(*batch, n/64, 64, 64)``; the leaf produces them while
-it factors, so the inverse needs no triangular solve anywhere.
+``n`` must be a multiple of `PANEL`; `chol_inv_padded` takes any n, pads
+it with identity rows and crops the result.  ``Wd`` holds the inverses of
+L's 64x64 diagonal blocks, ``(*batch, n/64, 64, 64)``; the leaf produces
+them while it factors, so the inverse needs no triangular solve anywhere.
 
 Each wrapper launches its kernel on CUDA tensors (float32, contiguous) and
 runs the plain PyTorch version on CPU tensors; `chol_inv_plain` and
@@ -191,3 +191,23 @@ def tri_inv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
                   L3.shape[0], n, cuda.stream_ptr(L3.device))
         TRI_INV_LAUNCHES.launches += 1
     return W.reshape(L.shape)
+
+
+def _pad_identity(A: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """[[A, 0], [0, I]] of size n_pad (leading batch kept)."""
+    n = A.shape[-1]
+    if n_pad == n:
+        return A
+    out = A.new_zeros(A.shape[:-2] + (n_pad, n_pad))
+    out[..., :n, :n] = A
+    out.diagonal(dim1=-2, dim2=-1)[..., n:] = 1.0
+    return out
+
+
+def chol_inv_padded(Sigma: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, W = inv(L)) for SPD ``Sigma`` of any n: identity-padded to a
+    multiple of `PANEL`, factored (K2/K3a, then K3b), cropped.
+    inv([[L, 0], [0, I]]) = [[inv(L), 0], [0, I]], so cropping is exact."""
+    n = Sigma.shape[-1]
+    L, Wd = chol_inv(_pad_identity(Sigma, -(-n // PANEL) * PANEL))
+    return L[..., :n, :n], tri_inv(L, Wd)[..., :n, :n]

@@ -12,7 +12,7 @@ the three hyperparameter gradients need one GEMM beyond the factorization:
     dNLL/dt = <G, M>,  M = K . d^2 e^{-2t}       (tr(Sigma^{-1} M) = sum((W M) . W))
 
 The forward builds Sigma with K1 (`ops/gram.py`) and factors it with K2 +
-K3b (`ops/blocked.py:chol_inv_padded`).  The x gradient is ZERO by design:
+K3b (`ops/chol.py:chol_inv_padded`).  The x gradient is ZERO by design:
 training never differentiates the NLML with respect to its inputs.
 Parameters and losses may carry a leading batch dimension.
 """
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from fidelityfusion_tpu_torch.ops.blocked import chol_inv_padded
+from fidelityfusion_tpu_torch.ops.chol import chol_inv_padded
 from fidelityfusion_tpu_torch.ops.gram import gram
 from fidelityfusion_tpu_torch.ops.linalg import LOG2PI
 

@@ -1,7 +1,7 @@
 """Dense Gaussian-process linear algebra: factorization, NLML, posterior.
 
 Port of `fidelityfusion_tpu/ops/linalg.py`.  Every factorization goes
-through the hand-written kernels (`ops/blocked.py:chol_inv_padded`, i.e.
+through the hand-written kernels (`ops/chol.py:chol_inv_padded`, i.e.
 K2/K3a + K3b on the card): each returns (L, W = inv(L)), and every solve
 becomes a product with W, so no triangular solve remains anywhere.  The
 NLML's Sigma gradient is K4 (`sigma_grad`, `csrc/nll_grad.cu`).
@@ -24,26 +24,21 @@ from typing import Optional, Tuple
 import torch
 
 from fidelityfusion_tpu_torch.ops import cuda
+from fidelityfusion_tpu_torch.ops.chol import chol_inv_padded
 
 JITTER = 1e-6
 LOG2PI = math.log(2.0 * math.pi)
 
 # K4 (`csrc/nll_grad.cu`) forms the NLML's Sigma gradient from this many
-# rows on, the restart path's threshold (`ops/blocked.py:auto_block`).  By
-# device time on an H100 80GB HBM3 at 700 W, 4 restarts: K4 0.0217 ms
-# against the plain expression's 0.0184 at n = 256, 0.0260 against 0.0257
-# at 320, 0.0399 against 0.0458 at 512; so below it the library GEMM stays.
+# rows on: its measured crossover with the plain expression.  By device
+# time on an H100 80GB HBM3 at 700 W, 4 restarts: K4 0.0217 ms against the
+# plain expression's 0.0184 at n = 256, 0.0260 against 0.0257 at 320,
+# 0.0399 against 0.0458 at 512; so below it the library GEMM stays.
 NLL_GRAD_MIN_N = 320
 _NLL_GRAD = cuda.Library("nll_grad.cu", {"ff_nll_grad": [
     cuda.PTR, cuda.I64, cuda.INT, cuda.PTR, cuda.INT, cuda.PTR, cuda.INT, cuda.PTR, cuda.PTR,
     cuda.INT, cuda.INT, cuda.PTR]})
 NLL_GRAD_LAUNCHES = cuda.counter("nll_grad")  # K4
-
-
-def _factor(Sigma):
-    from fidelityfusion_tpu_torch.ops.blocked import chol_inv_padded
-
-    return chol_inv_padded(Sigma)
 
 
 def _diag(A):
@@ -84,7 +79,7 @@ def apply_mask(Sigma, mask):
 
 def cholesky(Sigma):
     """Lower Cholesky factor (K2/K3a on the card)."""
-    return _factor(Sigma)[0]
+    return chol_inv_padded(Sigma)[0]
 
 
 def sigma_grad_plain(W, alpha, g):
@@ -132,14 +127,13 @@ class _MvnNll(torch.autograd.Function):
 
         dL/dSigma = 0.5 (d W^T W - alpha alpha^T),  dL/dy = alpha = W^T gamma.
 
-    Shared by `mvn_nll_fused`, `ops/blocked.py:mvn_nll_hybrid` and
-    `mvn_nll_blocked`: on the card they all factor through the kernels,
-    so they differ only in how they pad.  dL/dSigma is K4's (`sigma_grad`)
-    in float32 from `NLL_GRAD_MIN_N` rows on."""
+    Behind `mvn_nll` and `mvn_nll_fused`, for one matrix or a restart
+    batch.  dL/dSigma is K4's (`sigma_grad`) in float32 from
+    `NLL_GRAD_MIN_N` rows on."""
 
     @staticmethod
     def forward(ctx, Sigma, y):
-        L, W = _factor(Sigma)
+        L, W = chol_inv_padded(Sigma)
         gamma = W @ y
         n, d = y.shape[-2], y.shape[-1]
         val = (0.5 * (gamma * gamma).sum((-2, -1))
@@ -170,6 +164,8 @@ def mvn_nll(Sigma, y, mask=None, method: str = "cholesky"):
     path)."""
     if y.ndim == 1:
         y = y[:, None]
+    if mask is None and method != "direct":
+        return mvn_nll_fused(Sigma, y)
     d = y.shape[-1]
     n = y.shape[-2]
     correction = 0.0
@@ -190,7 +186,7 @@ def posterior(Sigma, y, K_s, K_ss, mask=None):
         m = mask.to(K_s.dtype)
         K_s = K_s * m[:, None]
         y = y * m[:, None]
-    _, W = _factor(Sigma)
+    _, W = chol_inv_padded(Sigma)
     alpha = _mT(W) @ (W @ y)
     v = W @ K_s
     return _mT(K_s) @ alpha, K_ss - _mT(v) @ v
@@ -202,7 +198,7 @@ def posterior_diag(Sigma, y, K_s, k_ss_diag, mask=None):
         m = mask.to(K_s.dtype)
         K_s = K_s * m[:, None]
         y = y * m[:, None]
-    _, W = _factor(Sigma)
+    _, W = chol_inv_padded(Sigma)
     alpha = _mT(W) @ (W @ y)
     v = W @ K_s
     var = torch.clamp(k_ss_diag - (v * v).sum(-2), min=0.0)
@@ -214,7 +210,7 @@ def posterior_cache(Sigma, y, mask=None) -> dict:
     ``{"W": inv(L), "alpha": Sigma^{-1} y, "logdiagL": log diag L}``."""
     if mask is not None:
         y = y * mask[:, None].to(y.dtype)
-    L, W = _factor(Sigma)
+    L, W = chol_inv_padded(Sigma)
     alpha = _mT(W) @ (W @ y)
     return {"W": W, "alpha": alpha, "logdiagL": torch.log(_diag(L))}
 

@@ -59,7 +59,7 @@ def restart_scaling_efficiency(n: int = 256, steps: int = 100, restarts_per_devi
     wait), host seconds per run; efficiency = t(1) / t(D) (1.0: more
     restarts in the same time), the same on every rank (each times the
     members' runs between barriers).  Called by every rank of the world; the
-    protocol is the JAX package's (SE CIGP, ``hybrid_nll=False``)."""
+    protocol is the JAX package's (SE CIGP, ``se_analytic_nll=False``)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from fidelityfusion_tpu_torch.models.cigp import CIGP
@@ -71,7 +71,7 @@ def restart_scaling_efficiency(n: int = 256, steps: int = 100, restarts_per_devi
     rng = np.random.default_rng(0)
     x = torch.tensor((rng.random((n, 1)) * 20).astype(np.float32), device=device)
     y = torch.sin(x)
-    gp = CIGP(kernel=SquaredExponentialKernel(), hybrid_nll=False)
+    gp = CIGP(kernel=SquaredExponentialKernel(), se_analytic_nll=False)
     p0 = {"kernel": {"length_scale": torch.ones(1, device=device),
                      "signal_variance": torch.ones(1, device=device)},
           "log_beta": torch.ones(1, device=device)}

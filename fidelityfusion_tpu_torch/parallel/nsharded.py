@@ -9,7 +9,7 @@ right-looking blocked Cholesky laid out across ranks.  Per panel j:
   * the b x b diagonal block is replicated by a masked all-reduce and
     factored on every rank: K2 (one matrix) or K3a (a rank's restart
     group) for ``(L_jj, W_d)``, then K3b for ``W_jj = inv(L_jj)``
-    (`ops/blocked.py:chol_inv_padded`, which identity-pads a b that is
+    (`ops/chol.py:chol_inv_padded`, which identity-pads a b that is
     not a multiple of the kernels' 64-row panel);
   * the panel solve is a local product with ``W_jj`` and the trailing
     Schur update a local product with the all-gathered panel column
@@ -51,6 +51,7 @@ from typing import Optional
 
 import torch
 
+from fidelityfusion_tpu_torch.ops.chol import chol_inv_padded
 from fidelityfusion_tpu_torch.parallel.collectives import (
     all_gather_rows, all_reduce_sum, gather_rows, psum, rank, replicate_tree, sum_partials)
 from fidelityfusion_tpu_torch.parallel.mesh import (
@@ -63,8 +64,6 @@ LOG2PI = math.log(2.0 * math.pi)
 def _factor_blocks(D):
     """``(L_jj, W_jj)`` of (B, b, b) SPD blocks: K2 + K3b for one matrix,
     K3a + K3b for a batch."""
-    from fidelityfusion_tpu_torch.ops.blocked import chol_inv_padded
-
     if D.shape[0] == 1:
         L, W = chol_inv_padded(D[0])
         return L[None], W[None]

@@ -1,6 +1,7 @@
 """The port's factorization kernels' plain versions (K2/K3a, K3b) against
-the retired Pallas kernels in interpret mode, and the blocked / hybrid /
-analytic-SE NLMLs against the JAX package (values and gradients)."""
+the retired Pallas kernels in interpret mode, and `linalg.mvn_nll` and the
+analytic-SE NLML against the JAX package's blocked, hybrid and analytic
+NLMLs (values and gradients)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,9 +13,10 @@ from benchmarks.retired.pallas_batched import cholesky_vmem, tri_inv_vmem
 from benchmarks.retired.pallas_cholesky import cholesky_blocked
 from fidelityfusion_tpu.ops import blocked as JB
 from fidelityfusion_tpu.ops import fused_se as JS
-from fidelityfusion_tpu_torch.ops import blocked as TB
 from fidelityfusion_tpu_torch.ops import fused_se as TS
-from fidelityfusion_tpu_torch.ops.chol import chol_inv, chol_inv_plain, tri_inv, tri_inv_plain
+from fidelityfusion_tpu_torch.ops import linalg as TL
+from fidelityfusion_tpu_torch.ops.chol import (
+    chol_inv, chol_inv_padded, chol_inv_plain, tri_inv, tri_inv_plain)
 
 
 def _spd(rng, n, R=None):
@@ -88,11 +90,11 @@ def _assert_vg(got, want):
 @pytest.mark.parametrize("n", [256, 300])
 def test_mvn_nll_blocked_matches_jax(n):
     """Value and gradients at the tests/test_linalg.py:195 bars, including
-    identity-row padding (n = 300)."""
+    identity-row padding (n = 300, padded to 320)."""
     rng = np.random.default_rng(n)
     S, y = _spd(rng, n), rng.standard_normal((n, 2)).astype(np.float32)
     want = _jax_vg(lambda s, yy: JB.mvn_nll_blocked(s, yy, block=64), S, y)
-    _assert_vg(_torch_vg(lambda s, yy: TB.mvn_nll_blocked(s, yy, block=64), S, y), want)
+    _assert_vg(_torch_vg(TL.mvn_nll, S, y), want)
 
 
 def test_mvn_nll_blocked_mask_and_batch_match_jax():
@@ -106,7 +108,7 @@ def test_mvn_nll_blocked_mask_and_batch_match_jax():
     per_restart = jax.vmap(lambda s, yy: JB.mvn_nll_blocked(s, yy, mask=jm))
     want_v = np.asarray(jax.jit(per_restart)(jnp.asarray(S), jnp.asarray(y)))
     _, want_g = _jax_vg(lambda s, yy: jnp.sum(per_restart(s, yy)), S, y)
-    got = _torch_vg(lambda s, yy: TB.mvn_nll_blocked(s, yy, mask=tm), S, y)
+    got = _torch_vg(lambda s, yy: TL.mvn_nll(s, yy, mask=tm), S, y)
     _assert_vg(got, (want_v, want_g))
 
 
@@ -115,20 +117,19 @@ def test_mvn_nll_hybrid_matches_jax():
     n = 300
     S, y = _spd(rng, n), rng.standard_normal((n, 3)).astype(np.float32)
     want = _jax_vg(lambda s, yy: JB.mvn_nll_hybrid(s, yy, 128), S, y)
-    _assert_vg(_torch_vg(TB.mvn_nll_hybrid, S, y), want)
+    _assert_vg(_torch_vg(TL.mvn_nll, S, y), want)
 
 
 def test_tri_inv_gemm_and_hybrid_leaf():
+    """`chol_inv_padded`'s crop is exact: 150 rows padded to 192 give the
+    150-row factor and W L = I, in float64."""
     rng = np.random.default_rng(5)
-    S = _spd(rng, 256).astype(np.float64)
+    S = _spd(rng, 150).astype(np.float64)
     L = np.linalg.cholesky(S)
-    W = TB.tri_inv_gemm(_t(L[:200, :200]))
-    np.testing.assert_allclose((W.numpy() @ L[:200, :200]), np.eye(200), atol=1e-12)
-    Lh, Wh = TB.blocked_chol_inv(_t(S), block=64, leaf="hybrid")
-    Lv, Wv = TB.blocked_chol_inv_v2(_t(S), block=128)
-    np.testing.assert_allclose(Wh.numpy(), Wv.numpy(), rtol=1e-10, atol=1e-14)
-    Lp, Wp = TB.chol_inv_padded(_t(S[:150, :150]))
-    np.testing.assert_allclose(Lp.numpy(), L[:150, :150], rtol=1e-12, atol=1e-12)
+    Lp, Wp = chol_inv_padded(_t(S))
+    assert Lp.shape == Wp.shape == (150, 150)
+    np.testing.assert_allclose(Lp.numpy(), L, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(Wp.numpy() @ L, np.eye(150), atol=1e-12)
 
 
 def test_se_nlml_matches_jax_with_zero_x_grad():

@@ -464,7 +464,7 @@ def test_cigp_nll_nsharded_world_of_one_on_the_card_matches_cpu(dev):
     rng = np.random.default_rng(0)
     x = (rng.random((512, 2)) * 4).astype(np.float32)
     y = (np.sin(x.sum(1, keepdims=True)) + 0.1 * rng.standard_normal((512, 1))).astype(np.float32)
-    gp = CIGP(kernel=ARDKernel(), se_analytic_nll=False, hybrid_nll=False)
+    gp = CIGP(kernel=ARDKernel())
 
     def value_grad(fn, device):
         p = tree_map(lambda a: a.requires_grad_(True), gp.init_params(2, device=device))

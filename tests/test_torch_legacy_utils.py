@@ -420,7 +420,7 @@ def test_x64_factor_trains_and_predicts_like_the_float64_closed_form():
 
     x, y, p = _x64_case()
     gp32 = TCIGP.CIGP(kernel=TK.SquaredExponentialKernel(), jitter=0.0, min_noise=0.0,
-                      se_analytic_nll=False, hybrid_nll=False)
+                      se_analytic_nll=False)
     v32 = gp32.nll(params_from_numpy(p, "cpu"), torch.tensor(x), torch.tensor(y))
     assert not torch.isfinite(v32), "fixture no longer ill-conditioned"
     tg = TCIGP.CIGP(kernel=TK.SquaredExponentialKernel(), jitter=0.0, min_noise=0.0,

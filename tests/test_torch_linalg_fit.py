@@ -173,9 +173,9 @@ def _cigp_case(branch):
     ard = {"length_scales": [0.8], "signal_variance": [1.3]}
     if branch == "se_analytic":
         return JCIGP(JK.SquaredExponentialKernel()), TCIGP(TK.SquaredExponentialKernel()), se, 512, False
-    if branch == "blocked":
+    if branch == "blocked":  # the port's restart route is its plain spec's
         return (JCIGP(JK.SquaredExponentialKernel(), blocked_nll=True),
-                TCIGP(TK.SquaredExponentialKernel(), blocked_nll=True), se, 330, False)
+                TCIGP(TK.SquaredExponentialKernel()), se, 330, False)
     if branch == "hybrid":
         return JCIGP(JK.ARDKernel()), TCIGP(TK.ARDKernel()), ard, 512, False
     if branch == "fused":
@@ -186,7 +186,7 @@ def _cigp_case(branch):
 @pytest.mark.parametrize("branch", ["se_analytic", "blocked", "hybrid", "fused", "masked"])
 def test_cigp_nll_dispatch_matches_jax_f64(branch):
     """`CIGP.nll` value and parameter gradients, one case per branch of the
-    dispatch (cigp.py:119-151), in float64."""
+    JAX package's dispatch, in float64."""
     jgp, tgp, kraw, n, masked = _cigp_case(branch)
     rng = np.random.default_rng(7)
     x = np.sort(rng.random((n, 1)) * 8, axis=0)
@@ -211,6 +211,71 @@ def test_cigp_nll_dispatch_matches_jax_f64(branch):
         np.testing.assert_allclose(tp["kernel"][k].grad.numpy(), np.asarray(wg["kernel"][k]),
                                    rtol=1e-6)
     np.testing.assert_allclose(tp["log_beta"].grad.numpy(), np.asarray(wg["log_beta"]), rtol=1e-6)
+
+
+ROUTE_CASES = {  # case -> (port spec, restarts, masked, y_var, se_nlml calls)
+    "se_unbatched": (TCIGP(TK.SquaredExponentialKernel()), None, False, False, 1),
+    "se_restarts": (TCIGP(TK.SquaredExponentialKernel()), 2, False, False, 0),
+    "ard": (TCIGP(TK.ARDKernel()), None, False, False, 0),
+    "analytic_off": (TCIGP(TK.SquaredExponentialKernel(), se_analytic_nll=False), None, False,
+                     False, 0),
+    "masked": (TCIGP(TK.SquaredExponentialKernel()), None, True, False, 0),
+    "y_var": (TCIGP(TK.SquaredExponentialKernel()), None, False, True, 0),
+}
+
+
+def _route_inputs(restarts=None):
+    n = 512
+    rng = np.random.default_rng(9)
+    x = _t(np.sort(rng.random((n, 1)) * 8, axis=0))
+    y = torch.sin(2 * x) + 0.1 * _t(rng.standard_normal((n, 1)))
+    p = {"kernel": {"length_scale": _t([-1.5]), "signal_variance": _t([0.2])},
+         "log_beta": _t([2.5])}
+    if restarts:
+        p = TF.stack_params([p] * restarts)
+    return p, x, y
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_cigp_nll_route(case, monkeypatch):
+    """`CIGP.nll` takes `se_nlml` only for one unmasked SE matrix of
+    `SE_ANALYTIC_MIN_N` rows without targets' variances; a restart batch,
+    another kernel, the route switched off, a mask or ``y_var`` go through
+    `linalg.mvn_nll`."""
+    from fidelityfusion_tpu_torch.models import cigp as TC
+    from fidelityfusion_tpu_torch.ops import fused_se
+
+    gp, restarts, masked, with_var, want = ROUTE_CASES[case]
+    assert TC.SE_ANALYTIC_MIN_N == 512
+    p, x, y = _route_inputs(restarts=restarts)
+    if isinstance(gp.kernel, TK.ARDKernel):
+        p["kernel"] = {"length_scales": _t([0.8]), "signal_variance": _t([1.3])}
+    calls = []
+    se_nlml = fused_se.se_nlml
+    monkeypatch.setattr(fused_se, "se_nlml", lambda *a, **k: calls.append(1) or se_nlml(*a, **k))
+    mask = _t(np.arange(512) < 500) if masked else None
+    y_var = torch.full((512,), 1e-3, dtype=x.dtype) if with_var else None
+    v = gp.nll(p, x, y, y_var=y_var, mask=mask)
+    assert len(calls) == want
+    assert v.shape == ((restarts,) if restarts else ()) and bool(torch.isfinite(v).all())
+
+
+def test_cigp_nll_route_forwards_agree_f64():
+    """At 512 rows in float64 the analytic and generic forwards agree to
+    1e-12, and the two routes' parameter gradients to 1e-6."""
+    p, x, y = _route_inputs()
+    vals, grads = [], []
+    for on in (True, False):
+        q = {"kernel": {k: v.clone().requires_grad_() for k, v in p["kernel"].items()},
+             "log_beta": p["log_beta"].clone().requires_grad_()}
+        v = TCIGP(TK.SquaredExponentialKernel(), se_analytic_nll=on).nll(q, x, y)
+        v.backward()
+        vals.append(float(v))
+        grads.append([q["kernel"]["length_scale"].grad, q["kernel"]["signal_variance"].grad,
+                      q["log_beta"].grad])
+    np.testing.assert_allclose(vals[0], vals[1], rtol=1e-12)
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6)
 
 
 def test_cigp_predict_and_cache_match_jax_f64():

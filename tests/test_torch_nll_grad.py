@@ -111,7 +111,7 @@ def test_sigma_grad_on_cpu_is_the_plain_expression():
 
 def _small_ar(device):
     """A 3-fidelity AR on nested 384/320/128-row toy data: two stages of
-    >= 320 rows (the restart path's blocked NLML) and one below."""
+    >= `NLL_GRAD_MIN_N` rows and one below."""
     from fidelityfusion_tpu_torch.demo import _toy_3fid
     from fidelityfusion_tpu_torch.models.ar import AR
     from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager
@@ -129,7 +129,9 @@ STEPS = 3
 
 def test_restart_fit_routes_large_stages_to_k4(monkeypatch):
     """`_MvnNll.backward` takes `sigma_grad` once a step in each stage of
-    >= `NLL_GRAD_MIN_N` rows and `sigma_grad_plain` in the others."""
+    >= `NLL_GRAD_MIN_N` rows, on W of the stage's own rows (384 and 320,
+    both multiples of the 64-row panel), and `sigma_grad_plain` in the
+    others."""
     from fidelityfusion_tpu_torch.models.ar import train_AR
 
     rows = []
@@ -142,7 +144,7 @@ def test_restart_fit_routes_large_stages_to_k4(monkeypatch):
     monkeypatch.setattr(linalg, "sigma_grad", counted)
     model, dm = _small_ar("cpu")
     train_AR(model, dm, max_iter=STEPS, lr_init=5e-2, n_restarts=2)
-    assert sorted(rows) == [384] * (2 * STEPS)
+    assert sorted(rows) == [320] * STEPS + [384] * STEPS
 
 
 # ---- on the card
@@ -158,7 +160,7 @@ def dev():
 def _se_inverse(dev, B, n, seed=0):
     """W = inv(L) of B SE Grams (noise 1e-2) from the port's factorization,
     and alpha = W^T W y, g: the backward's inputs as the NLML makes them."""
-    from fidelityfusion_tpu_torch.ops.blocked import chol_inv_padded
+    from fidelityfusion_tpu_torch.ops.chol import chol_inv_padded
     from fidelityfusion_tpu_torch.ops.gram import gram_plain
 
     gen = torch.Generator().manual_seed(seed)
@@ -198,13 +200,12 @@ def test_k4_matches_float64(dev, B, n, cropped):
 
 
 @pytest.mark.cuda
-def test_mvn_nll_blocked_grad_matches_float64_autodiff(dev):
-    """`mvn_nll_blocked`'s Sigma and y gradients on the card (K3a, K3b, K4
-    at 4 restarts of 640 rows, padded to 768) against autodiff of
+def test_mvn_nll_batched_grad_matches_float64_autodiff(dev):
+    """`mvn_nll`'s Sigma and y gradients on the card (K3a, K3b, K4 at 4
+    restarts of 640 rows) against autodiff of
     `mvn_nll(method="direct")` in float64 on the CPU.  Noise 0.1 keeps
     cond(Sigma) near 1e4, where the float32 factorization's own error is
     about 1e-4 of the gradient's scale."""
-    from fidelityfusion_tpu_torch.ops.blocked import mvn_nll_blocked
     from fidelityfusion_tpu_torch.ops.gram import gram_plain
 
     B, n = 4, 640
@@ -216,7 +217,7 @@ def test_mvn_nll_blocked_grad_matches_float64_autodiff(dev):
     y64 = torch.sin(3.0 * x[:, :1]) + 0.1 * torch.randn((n, 1), generator=gen, dtype=torch.float64)
     S, y = S64.float().to(dev).requires_grad_(), y64.float().to(dev).requires_grad_()
     before = linalg.NLL_GRAD_LAUNCHES.launches
-    gS, gy = torch.autograd.grad(mvn_nll_blocked(S, y).sum(), (S, y))
+    gS, gy = torch.autograd.grad(linalg.mvn_nll(S, y).sum(), (S, y))
     assert linalg.NLL_GRAD_LAUNCHES.launches == before + 1
     S64.requires_grad_()
     y64.requires_grad_()

@@ -46,7 +46,7 @@ def _gp(kind):
     from fidelityfusion_tpu_torch.ops.kernels import ARDKernel, SquaredExponentialKernel
 
     kernel = ARDKernel() if kind == "ard" else SquaredExponentialKernel()
-    return CIGP(kernel=kernel, se_analytic_nll=False, hybrid_nll=False)
+    return CIGP(kernel=kernel, se_analytic_nll=False)
 
 
 def task_nll(inp, meshes):
