@@ -1515,7 +1515,9 @@ def check_kron_nll(label, v_card, v32, v64, trained=None, tol=1e-3):
 class ResidualProbe:
     """Wraps a HOGP spec's `nll_tracked` to keep the running max of the
     tracking residual over every restart and step (the trainer keeps it
-    per restart in its aux but returns only the winner's params)."""
+    per restart in its aux but returns only the winner's params), in one
+    tensor per stage written in place (the trainer replays tracked steps
+    from CUDA graphs, which do not run this Python again)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -1532,7 +1534,10 @@ class ResidualProbe:
                 loss, aux = super().nll_tracked(*args, **kwargs)
                 prev = probe.max_res.get(key)
                 cur = aux[1].detach().max()
-                probe.max_res[key] = cur if prev is None else probe.torch.maximum(prev, cur)
+                if prev is None:
+                    probe.max_res[key] = cur.clone()
+                else:  # in place, so a step replayed from a CUDA graph updates it too
+                    prev.copy_(probe.torch.maximum(prev, cur))
                 return loss, aux
 
         return Probed(**{f.name: getattr(hogp, f.name) for f in dataclasses.fields(hogp)})
@@ -1668,19 +1673,21 @@ def gar_path(torch, device, iters, report):
     the tracked spectrum, stage 2 exact eigh every step), then `forward` on
     the 128 test samples; each stage's NLML through K1 within 1e-3 of
     max(|NLML|, 1) of the plain float64 one (`check_kron_nll`), the
-    relative error < 0.6."""
+    relative error < 0.6; the tracked stages' steps replayed from CUDA
+    graphs (`train/fit.py:graph_counts`)."""
     import numpy as np
 
     from fidelityfusion_tpu_torch.models.gar import GAR, train_GAR
     from fidelityfusion_tpu_torch.ops import cuda
     from fidelityfusion_tpu_torch.ops.kernels import ARDKernel
-    from fidelityfusion_tpu_torch.train.fit import restart_scores
+    from fidelityfusion_tpu_torch.train.fit import graph_counts, reset_graph_counts, restart_scores
 
     dm, shapes, x_test, truth = field_setup(device)
     model = GAR(3, [ARDKernel() for _ in range(3)], shapes, input_dim=4, device=device)
     probe = ResidualProbe(torch)
     model.hogp_list = [probe.wrap(h, i) for i, h in enumerate(model.hogp_list)]
     cuda.reset_launch_counts()
+    reset_graph_counts()
     clock = LaunchClock(torch, model)
     hists = train_GAR(model, dm, max_iter=iters, lr_init=5e-2, n_restarts=4, debugger=clock)
     with torch.no_grad():
@@ -1717,8 +1724,11 @@ def gar_path(torch, device, iters, report):
     check(bool((var > 0).all()), "GAR forward: variances > 0")
     rmse, rel = field_metrics("GAR", mean, truth)
     cascade_launches("GAR", ("gram", "small_eigh"), counts)
+    graphs = graph_counts()
+    print(f"GAR training steps by CUDA graph: {graphs}", flush=True)
+    check(graphs["replayed"] > 0, f"GAR: tracked steps replayed from CUDA graphs ({graphs})")
     report["launches_by_path"]["GAR"] = counts
-    report["kron"]["GAR"] = dict(stages=stages, rmse=rmse, rel_err=rel)
+    report["kron"]["GAR"] = dict(stages=stages, rmse=rmse, rel_err=rel, graph_counts=graphs)
 
 
 def cigar_path(torch, device, iters, report):

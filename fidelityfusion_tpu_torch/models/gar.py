@@ -26,6 +26,7 @@ from fidelityfusion_tpu_torch.models.ar import _f32, _residual_norm, _run_stage,
 from fidelityfusion_tpu_torch.models.coupling import TensorLinear
 from fidelityfusion_tpu_torch.models.data_manager import MultiFidelityDataManager
 from fidelityfusion_tpu_torch.models.hogp import HOGP, HOGPState
+from fidelityfusion_tpu_torch.ops import kron
 from fidelityfusion_tpu_torch.ops.kernels import Kernel
 from fidelityfusion_tpu_torch.utils.device import resolve_device
 
@@ -57,8 +58,24 @@ class _GarResLoss:
         return self.hogp.nll(p["hogp"], sx, res, y_var=rv)
 
 
+class _TrackedSteps:
+    """The host branch a tracked loss's step takes, for the trainer's CUDA
+    graphs (`train/fit.py:_replayed_steps`): steps with one key launch the
+    same work, so one graph replays them all."""
+
+    def graph_key(self, step: int):
+        """None where the step must run eagerly: a refresh step, whose full
+        ``eigh`` of K_0 syncs on its status, and every step where a mode Gram
+        is too wide for K5 (``torch.linalg.eigh`` then syncs each step);
+        else the Jacobi step's key."""
+        if (step % self.refresh_every == 0
+                or max(self.hogp.output_shape, default=0) > kron.SMALL_EIGH_MAX_N):
+            return None
+        return "jacobi"
+
+
 @dataclasses.dataclass(frozen=True)
-class _Gar0LossTracked:
+class _Gar0LossTracked(_TrackedSteps):
     """`_Gar0Loss` through the tracked-spectrum NLML (aux-carry signature,
     `train.fit.adam_scan_aux`).  ``refresh_every`` sets the calendar; the
     segmented adaptive trainer (`fit_restarts_tracked_adaptive`) passes a
@@ -73,7 +90,7 @@ class _Gar0LossTracked:
 
 
 @dataclasses.dataclass(frozen=True)
-class _GarResLossTracked:
+class _GarResLossTracked(_TrackedSteps):
     """`_GarResLoss` through the tracked-spectrum NLML."""
 
     hogp: HOGP

@@ -20,6 +20,7 @@ pass, the mode Grams, the cross-Gram of `predict`) is K1
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -30,6 +31,14 @@ from fidelityfusion_tpu_torch.utils.device import resolve_device
 from fidelityfusion_tpu_torch.utils.tree import tree_leaves, tree_map
 
 JITTER = linalg.JITTER
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-dim ``value`` made once per (value, dtype, device) and never
+    written: a tensor from a Python number on the card is a host-to-device
+    copy, which syncs the stream and cannot be captured in a CUDA graph."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 class HOGPState(NamedTuple):
@@ -102,7 +111,7 @@ class HOGP:
         eigenvalues past a float32 Gram's rounding)."""
         f64 = torch.float64
         kp = tree_map(lambda a: a.to(f64), params["kernel"])
-        jit = torch.tensor(self.jitter, dtype=f64, device=x_train.device)
+        jit = _constant(self.jitter, f64, x_train.device)
         K0 = self.kernel.apply(kp, x_train.to(f64), x_train.to(f64), diag_add=jit,
                                y_var=None if y_var is None else y_var.to(f64))
         return K0, [self._mode_gram(kp, g.to(f64)) for g in self.grids(params)]

@@ -52,6 +52,11 @@ _MAX_S_NORM = 0.7
 
 REFRESHES: Counter = Counter()  # n -> full eigh refreshes
 REFINEMENTS: Counter = Counter()  # n -> Jacobi refinements
+# every counter by its name in `spectral_counts` (`train/fit.py` adds a
+# replayed CUDA graph's counts to them)
+COUNTERS: Dict[str, Counter] = {"refresh": REFRESHES, "jacobi": REFINEMENTS,
+                                "small_eigh": kron.SMALL_EIGH_CALLS,
+                                "library_eigh": kron.LIBRARY_EIGH_CALLS}
 
 
 def spectral_counts() -> Dict[str, Dict[int, int]]:
@@ -59,13 +64,11 @@ def spectral_counts() -> Dict[str, Dict[int, int]]:
     calls}, "library_eigh": {n: calls}}`` since the last
     `reset_spectral_counts`: the last two are `kron.eigh_pairs`' calls
     through K5 and through ``torch.linalg.eigh``."""
-    return {"refresh": dict(REFRESHES), "jacobi": dict(REFINEMENTS),
-            "small_eigh": dict(kron.SMALL_EIGH_CALLS),
-            "library_eigh": dict(kron.LIBRARY_EIGH_CALLS)}
+    return {name: dict(c) for name, c in COUNTERS.items()}
 
 
 def reset_spectral_counts() -> None:
-    for c in (REFRESHES, REFINEMENTS, kron.SMALL_EIGH_CALLS, kron.LIBRARY_EIGH_CALLS):
+    for c in COUNTERS.values():
         c.clear()
 
 

@@ -11,10 +11,13 @@ warms up with the cell's own set-up, then profiles one whole fit
 the fit's wall and stage walls, the host-side calls that pace it
 (`aten::_linalg_eigh`, `cudaStreamSynchronize`, `cudaMemcpyAsync`: count
 and total milliseconds), `ops/spectral.py:spectral_counts()` of the fit,
-the kernel wrappers' launch counts, the device's busy time and idle
-share, the cuSOLVER reduction kernels by the matrix size their template
-names (`sytrd_params<double, _, _, n, ...>`), and the kernels by device
-time; ``--out`` also receives the full tables.  Imports nothing of JAX.
+the kernel wrappers' launch counts, the training steps captured into and
+replayed from CUDA graphs (`train/fit.py:graph_counts`), the host's
+launch calls (kernels, copies, sets and graph launches) and the device's
+kernels per training step, the device's busy time and idle share, the
+cuSOLVER reduction kernels by the matrix size their template names
+(`sytrd_params<double, _, _, n, ...>`), and the kernels by device time;
+``--out`` also receives the full tables.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 HOST_CALLS = ("aten::_linalg_eigh", "cudaStreamSynchronize", "cudaMemcpyAsync")
+# host calls that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cudaGraphLaunch")
 REDUCTION = re.compile(r"sytrd_params<double, \d+, \d+, (\d+),")
 
 
@@ -49,6 +56,7 @@ def main(argv=None) -> int:
     from profile_torch_ar import busy_us, device_events
     from chip_smoke import smi_line
     from fidelityfusion_tpu_torch.ops import cuda, spectral
+    from fidelityfusion_tpu_torch.train import fit as trainer
 
     cell = "gar.fit-poisson-2048"
     wl = harness.workload(cell)
@@ -60,6 +68,7 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     cuda.reset_launch_counts()
     spectral.reset_spectral_counts()
+    trainer.reset_graph_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = fit_gar.fit(run, state, 0, run.traffic["steps"])
@@ -69,10 +78,13 @@ def main(argv=None) -> int:
     events = device_events(prof, torch)
     busy = busy_us([(s, e) for _, s, e in events]) * 1e-6
     host = defaultdict(lambda: [0, 0.0])
+    launches = 0
     for e in prof.events():
         if e.name in HOST_CALLS:
             host[e.name][0] += 1
             host[e.name][1] += (e.time_range.end - e.time_range.start) * 1e-3
+        launches += e.name in LAUNCH_CALLS
+    steps = len(run.traffic["rows"]) * run.traffic["steps"]  # training steps of the fit
     by_name = defaultdict(lambda: [0, 0.0])
     for name, s, e in events:
         by_name[name][0] += 1
@@ -92,6 +104,9 @@ def main(argv=None) -> int:
         print(f"host {name}: {count} calls, {ms:.1f} ms")
     print(f"spectral_counts {counts}")
     print(f"kernel wrapper launches {cuda.launch_counts()}")
+    print(f"training steps by CUDA graph {trainer.graph_counts()} of {steps}")
+    print(f"host launch calls: {launches} in the fit, {launches / steps:.1f} a training step; "
+          f"device kernels and copies {len(events) / steps:.1f} a training step")
     print(f"device: busy {busy:.4f} s of {wall:.4f} s, idle share {1 - busy / wall:.4f}, "
           f"{len(events)} kernels and copies")
     print(f"cuSOLVER reductions by size (n: kernels, ms): "
