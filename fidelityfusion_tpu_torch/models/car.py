@@ -16,7 +16,9 @@ Port of `fidelityfusion_tpu/models/car.py`:
   factor is an n x n matrix, not a scalar, so the base Gram comes from K1
   alone, the product with ``f1 f2^T`` is a full-fp32 matmul, and the
   relative nugget is added afterwards; every step factors all the
-  fidelities' rows stacked together through K2 + K3b.
+  fidelities' rows stacked together as one matrix through K2 + K3b and
+  forms the NLML's Sigma gradient through K4 (`ops/linalg.py:sigma_grad`).
+  `car_counts` counts the kernel's feature maps and joint Grams.
 
 MC draws come from explicit ``torch.Generator`` seeds and sit under ``_``
 keys, which training leaves frozen.
@@ -26,7 +28,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from collections import Counter
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +47,23 @@ from fidelityfusion_tpu_torch.ops.gram import gram
 from fidelityfusion_tpu_torch.ops.kernels import Kernel, MCFidelityKernel
 from fidelityfusion_tpu_torch.train.fit import fit
 from fidelityfusion_tpu_torch.utils.device import resolve_device
+
+
+FEATURE_BUILDS: Counter = Counter()  # rows -> feature maps phi(s) built
+GRAM_BUILDS: Counter = Counter()  # (rows, cols) -> joint Grams built
+
+
+def car_counts() -> Dict[str, dict]:
+    """``{"features": {rows: builds}, "gram": {(rows, cols): builds}}``
+    since the last `reset_car_counts`: the feature maps and the joint Grams
+    that `ContinuousFidelityKernel` built.  Plain host integers, counted
+    with no sync, as `ops/spectral.py:spectral_counts`."""
+    return {"features": dict(FEATURE_BUILDS), "gram": dict(GRAM_BUILDS)}
+
+
+def reset_car_counts() -> None:
+    FEATURE_BUILDS.clear()
+    GRAM_BUILDS.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +109,7 @@ class ContinuousFidelityKernel(Kernel):
         cos_f = torch.mean(decay * torch.cos(phase), dim=1)
         sin_f = torch.mean(decay * torch.sin(phase), dim=1)
         feats = torch.cat([cos_f, sin_f], dim=-1) * s.reshape(-1, 1)
+        FEATURE_BUILDS[s.shape[0]] += 1
         return feats / math.sqrt(self.n_features)
 
     def apply(self, params, x1, x2):
@@ -99,6 +120,7 @@ class ContinuousFidelityKernel(Kernel):
         factor = f1 @ f2.T
         inv_ls, base_sv = self.base.gram_args(params["base"], x1.shape[-1] - 1)
         K_x = gram(x1[:, :-1], x2[:, :-1], inv_ls, base_sv)
+        GRAM_BUILDS[(x1.shape[0], x2.shape[0])] += 1
         return torch.abs(params["signal_variance"][0]) * factor * K_x
 
     def diag(self, params, x):
@@ -319,11 +341,16 @@ class ContinuousAutoRegressionLarge:
 
 def train_CAR_large(model: ContinuousAutoRegressionLarge,
                     data_manager: MultiFidelityDataManager, max_iter: int = 100,
-                    lr_init: float = 1e-2) -> torch.Tensor:
+                    lr_init: float = 1e-2, debugger=None) -> torch.Tensor:
     """One joint NLML over the stacked multi-fidelity dataset, unbatched
-    (K1 + K2 + K3b a step).  Returns the ``(max_iter,)`` loss history."""
+    (a step: K1 and the feature-map product for the Gram, K2 + K3b for
+    the factor and its inverse, K4 for the Sigma gradient).  The one stage
+    is reported to ``debugger.record_stage(0, losses)``, as the staged
+    trainers report theirs.  Returns the ``(max_iter,)`` loss history."""
     x_tr, y_tr = model.joint_train_data(data_manager)
     result = fit(model.gp.nll, model.params, steps=max_iter, lr=lr_init,
                  loss_args=(x_tr, y_tr))
     model.params = result.params
+    if debugger is not None:
+        debugger.record_stage(0, result.losses)
     return result.losses
